@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Smoke run of refign_tpu_torch on one NVIDIA card (H100).
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the exit code is non-zero:
+
+1. card: name and power limit (nvidia-smi);
+2. build: every ``refign_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
+3. kernels: each hand-written kernel against its plain PyTorch version on
+   the card, at the four MiT-B5 main-path shapes plus a ragged case, with
+   CUDA-event times beside the least time the card could take (bound) and
+   beside one PyTorch library call that computes the same function;
+4. main path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
+   seeded random bf16 weights) on a 1x1080x1920 image through
+   ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
+   for shape and finiteness, each kernel must launch 52 times per forward,
+   and the forward must agree with the same model run through the plain
+   versions; a small fp32 model checks the kernels' path tightly;
+5. the ``kernels`` JSON line, the card line and, last, the result line.
+
+There is no CPU path: without a CUDA device the script exits non-zero.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory rate, bf16 tensor-core
+# rate and fp32 CUDA-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# MiT-B5 at 30 rows of 540^2 (one 1080x1920 image): per stage, launches per
+# forward and the shapes each kernel sees
+B_ROWS = 30
+STAGES = [  # (launches, tokens N, keys M, heads H, dwconv H=W, hidden C)
+    (3, 18225, 256, 1, 135, 256),
+    (6, 4624, 289, 2, 68, 512),
+    (40, 1156, 289, 5, 34, 1280),
+    (3, 289, 289, 8, 17, 2048),
+]
+LAUNCHES_PER_FORWARD = sum(s[0] for s in STAGES)  # 52
+
+# elementwise bound for a kernel output in bf16 against the fp32 plain
+# version on the same inputs: one bf16 rounding (2^-8 relative) plus fp32
+# summation-order noise
+BF16_REL = 2.0 ** -8
+BF16_ABS = 1e-4
+# fp32 kernel output against the fp32 plain version (summation order only)
+FP32_ABS = 1e-5
+# whole 1080x1920 bf16 forward, kernels against plain versions: both round
+# every activation to bf16 at the same places; one-ulp differences travel
+# through 52 residual blocks and both heads
+E2E_MAX_REL = 5e-2
+E2E_MEAN_REL = 1e-2
+# small fp32 model, kernels against plain versions
+E2E_FP32_REL = 1e-4
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def time_ms(fn, reps=20, warmup=3) -> float:
+    """Median CUDA-event time of one call, over ``reps`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def check_close(name, got, ref, rel, abs_):
+    """Elementwise |got - ref| <= rel*|ref| + abs_; returns max abs error."""
+    import torch
+    got = got.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - ref).abs()
+    bad = err > rel * ref.abs() + abs_
+    if bad.any():
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements beyond {rel:g}*|ref| + "
+            f"{abs_:g}; max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def attention_case(gen, B, N, M, H, dtype):
+    """q (B,N,H,64) and k/v as the two halves of one kv projection, as the
+    MiT block passes them."""
+    import torch
+    q = torch.randn(B, N, H, 64, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(B, M, 2, H, 64, generator=gen, device="cuda").to(dtype)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def dwconv_case(gen, B, S, C, dtype):
+    import torch
+    x = torch.randn(B, S, S, C, generator=gen, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(C, 1, 3, 3, generator=gen, device="cuda")
+         ).to(dtype)
+    b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+    from refign_tpu_torch.ops.attention import (sra_attention,
+                                                sra_attention_reference)
+    from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                             dwconv3x3_gelu_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16 = torch.bfloat16
+    scale = 64 ** -0.5
+    rows = []
+
+    def attn_bound(B, N, M, H, itemsize):
+        nbytes = (2 * B * N * H * 64 + 2 * B * M * H * 64) * itemsize
+        flops = 4.0 * B * H * N * M * 64
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / BF16_TENSOR_FLOPS
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+    def dw_bound(B, S, C, itemsize):
+        nbytes = (2 * B * S * S * C + 10 * C) * itemsize
+        flops = B * S * S * C * 20.0  # 9 FMAs, bias, GELU
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / FP32_FLOPS
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+    cases = [("sra_attention", n, (B_ROWS, N, M, H), "main", bf16)
+             for (n, N, M, H, _, _) in STAGES]
+    cases += [("sra_attention", 0, (2, 1000, 17, 1), "ragged", bf16),
+              ("sra_attention", 0, (2, 1000, 17, 1), "ragged", torch.float32)]
+    cases += [("dwconv3x3_gelu", n, (B_ROWS, S, C), "main", bf16)
+              for (n, _, _, _, S, C) in STAGES]
+    cases += [("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", bf16),
+              ("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", torch.float32)]
+
+    for name, n_launch, shape, kind, dtype in cases:
+        if name == "sra_attention":
+            B, N, M, H = shape
+            q, k, v = attention_case(gen, B, N, M, H, dtype)
+            ref = sra_attention_reference(q.float(), k.float(), v.float(),
+                                          scale)
+            got = sra_attention(q, k, v, scale)
+            kernel = lambda: sra_attention(q, k, v, scale)  # noqa: E731
+            plain = lambda: sra_attention_reference(q, k, v, scale)  # noqa
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, scale=scale)
+            bound, bound_by = attn_bound(B, N, M, H, q.element_size())
+        else:
+            B, S, C = shape
+            x, w, b = dwconv_case(gen, B, S, C, dtype)
+            ref = dwconv3x3_gelu_reference(x.float(), w.float(), b.float())
+            got = dwconv3x3_gelu(x, w, b)
+            kernel = lambda: dwconv3x3_gelu(x, w, b)  # noqa: E731
+            plain = lambda: dwconv3x3_gelu_reference(x, w, b)  # noqa: E731
+            xc = x.permute(0, 3, 1, 2)
+            library = lambda: F.gelu(F.conv2d(  # noqa: E731
+                xc, w, b, padding=1, groups=C))
+            bound, bound_by = dw_bound(B, S, C, x.element_size())
+        torch.cuda.synchronize()
+        if dtype == bf16:
+            err = check_close(f"{name}{shape}", got, ref, BF16_REL, BF16_ABS)
+        else:
+            err = check_close(f"{name}{shape} fp32", got, ref, 0.0, FP32_ABS)
+        row = dict(name=name, shape=list(shape), kind=kind,
+                   dtype=str(dtype).replace("torch.", ""),
+                   launches_per_forward=n_launch, max_abs_err=err,
+                   ms=time_ms(kernel), plain_ms=time_ms(plain),
+                   library_ms=time_ms(library), bound_ms=bound,
+                   bound_by=bound_by)
+        rows.append(row)
+        log(f"  {name:15s} {kind:6s} {row['dtype']:8s} {str(shape):24s} "
+            f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
+            f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  "
+            f"library {row['library_ms']:.4f} ms")
+        del got, ref
+    return rows
+
+
+def plain_versions(enabled: bool):
+    """Test-only switch: route the MiT blocks through the kernels' plain
+    versions (enabled) or back through the kernel wrappers."""
+    from refign_tpu_torch.models import mix_transformer as mt
+    from refign_tpu_torch.ops import attention, dwconv
+    mt.sra_attention = (attention.sra_attention_reference if enabled
+                        else attention.sra_attention)
+    mt.dwconv3x3_gelu = (dwconv.dwconv3x3_gelu_reference if enabled
+                         else dwconv.dwconv3x3_gelu)
+
+
+def phase_main_path(card):
+    import torch
+    from refign_tpu_torch.entry import build_hrda_star, hrda_slide_forward
+    from refign_tpu_torch.ops.attention import sra_attention
+    from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu
+
+    counted = (sra_attention, dwconv3x3_gelu)
+
+    # small fp32 model first: kernels against plain versions, tightly
+    small = build_hrda_star("mit_b1", dtype=torch.float32, device="cuda",
+                            seed=1, channels=64)
+    gen = torch.Generator().manual_seed(1)
+    img = torch.randn(1, 128, 192, 3, generator=gen).cuda()
+    out_k = hrda_slide_forward(small, img, (128, 128), (64, 64))
+    plain_versions(True)
+    try:
+        out_p = hrda_slide_forward(small, img, (128, 128), (64, 64))
+    finally:
+        plain_versions(False)
+    rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+    log(f"  mit_b1 fp32 128x192: kernels vs plain max rel {rel:.2e} "
+        f"(limit {E2E_FP32_REL:g})")
+    if not rel <= E2E_FP32_REL:
+        raise AssertionError(f"fp32 small model: kernels vs plain {rel}")
+    del small, out_k, out_p
+
+    t0 = time.perf_counter()
+    model = build_hrda_star("mit_b5", dtype=torch.bfloat16, device="cuda",
+                            seed=0)
+    torch.cuda.synchronize()
+    log(f"  built MiT-B5 HRDA* in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(0)
+    img = torch.randn(1, 1080, 1920, 3, generator=gen).to(
+        "cuda", torch.bfloat16)
+
+    for f in counted:
+        f.launches = 0
+    out = hrda_slide_forward(model, img)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counted}
+    log(f"  launches in one forward: {launches}")
+    for name, n in launches.items():
+        if n != LAUNCHES_PER_FORWARD:
+            raise AssertionError(f"{name} launched {n} times, expected "
+                                 f"{LAUNCHES_PER_FORWARD}")
+    if tuple(out.shape) != (1, 1080, 1920, 19):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if out.dtype != torch.bfloat16 or not torch.isfinite(out).all():
+        raise AssertionError("output not finite bf16")
+
+    plain_versions(True)
+    try:
+        ref = hrda_slide_forward(model, img)
+    finally:
+        plain_versions(False)
+    diff = (out.float() - ref.float()).abs()
+    max_rel = (diff.max() / ref.float().abs().max()).item()
+    mean_rel = (diff.mean() / ref.float().abs().mean()).item()
+    log(f"  bf16 forward vs plain versions: max rel {max_rel:.3e} "
+        f"(limit {E2E_MAX_REL:g}), mean rel {mean_rel:.3e} "
+        f"(limit {E2E_MEAN_REL:g}); |ref| max "
+        f"{ref.float().abs().max().item():.3f}")
+    if not (max_rel <= E2E_MAX_REL and mean_rel <= E2E_MEAN_REL):
+        raise AssertionError("bf16 forward disagrees with plain versions")
+    del ref, diff
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hrda_slide_forward(model, img)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    sec = statistics.median(times)
+    log(f"  warm forward: median {sec * 1e3:.1f} ms over {len(times)} "
+        f"({[round(x * 1e3, 1) for x in times]} ms) = {1.0 / sec:.3f} "
+        f"images/s on {card}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_forward(model, img, sec)
+    return launches, sec
+
+
+KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
+    ("K1 sra_attention", ("sra_attention_kernel",)),
+    ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd")),
+    ("resize", ("upsample", "interpolate", "bilinear")),
+    ("reduction", ("reduce", "norm")),
+    ("copy / cat", ("copy", "cat", "Cat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+]
+
+
+def profile_forward(model, img, sec):
+    """Device time of one warm forward by kernel group (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from refign_tpu_torch.entry import hrda_slide_forward
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hrda_slide_forward(model, img)
+        torch.cuda.synchronize()
+    groups, top = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in evt.key for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us
+        top.append((us, evt.count, evt.key))
+    total = sum(groups.values())
+    if total == 0:
+        log("  profiler: no device time recorded")
+        return
+    log(f"  profiled forward: device busy {total / 1e3:.1f} ms of the "
+        f"{sec * 1e3:.1f} ms warm forward ({100 * total / 1e3 / (sec * 1e3):.1f}"
+        " %)")
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:22s} {us / 1e3:8.2f} ms  {100 * us / total:5.1f} %")
+    for us, n, key in sorted(top, reverse=True)[:12]:
+        log(f"    top: {us / 1e3:8.2f} ms  x{n:<5d} {key[:100]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import refign_tpu_torch
+        from refign_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: refign_tpu_torch not found beside the script "
+              f"({e})", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    refign_tpu_torch.full_fp32_precision()
+
+    card = card_line()
+    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"[2/5] built {len(logs)} kernel sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("[3/5] kernels against plain versions (bf16 limit "
+        f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g})")
+    rows = phase_kernels()
+
+    log("[4/5] main path")
+    launches, sec = phase_main_path(card)
+
+    log(f"[5/5] done in {time.perf_counter() - t_start:.1f} s")
+    sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
+                                 "refign_tpu/ops/attention.py:82"),
+               "dwconv3x3_gelu": ("refign_tpu_torch/csrc/dwconv3x3_gelu.cu",
+                                  "refign_tpu/ops/dwconv.py:102")}
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        main_rows = [r for r in rows if r["name"] == name
+                     and r["kind"] == "main"]
+
+        def per_forward(key):
+            return sum(r[key] * r["launches_per_forward"] for r in main_rows)
+
+        bound_ops = [r for r in main_rows if r["bound_by"] == "operations"]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r["name"] == name),
+            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
+            bound_ms=per_forward("bound_ms"),
+            bound_by=("operations" if 2 * len(bound_ops) > len(main_rows)
+                      else "bytes"),
+            library_ms=per_forward("library_ms")))
+    log("kernel times are per forward: the sum over the 52 main-path "
+        f"launches of one 1080x1920 image; forward {1.0 / sec:.3f} images/s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

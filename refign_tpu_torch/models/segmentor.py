@@ -1,0 +1,125 @@
+"""Encoder-decoder segmentor with HRDA multi-resolution inference, NHWC
+(counterpart of ``refign_tpu/models/segmentor.py``, eval path).
+
+* plain path: head(backbone(x)) + bilinear upsample;
+* HRDA eval: one LR pass of the half-resolution image plus the HR slide
+  crops (crop = LR size, stride = crop/2), all in ONE backbone batch
+  ([LR rows, then crops], crop-major), folded with a visit-count average and
+  fused by the sigmoid scale attention;
+* sliding-window inference: every crop of the grid in one batch, then
+  folded back.
+
+``hrda_train`` belongs to the training slice.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.resize import interpolate
+
+
+def compute_slide_boxes(img_size: Tuple[int, int],
+                        crop_size: Tuple[int, int],
+                        stride: Tuple[int, int]
+                        ) -> List[Tuple[int, int, int, int]]:
+    """Slide-crop boxes (y1, y2, x1, x2), the reference grid rule."""
+    h_img, w_img = img_size
+    h_crop, w_crop = crop_size
+    h_stride, w_stride = stride
+    h_grids = max(h_img - h_crop + h_stride - 1, 0) // h_stride + 1
+    w_grids = max(w_img - w_crop + w_stride - 1, 0) // w_stride + 1
+    boxes = []
+    for hi in range(h_grids):
+        for wi in range(w_grids):
+            y1, x1 = hi * h_stride, wi * w_stride
+            y2, x2 = min(y1 + h_crop, h_img), min(x1 + w_crop, w_img)
+            y1, x1 = max(y2 - h_crop, 0), max(x2 - w_crop, 0)
+            boxes.append((y1, y2, x1, x2))
+    return boxes
+
+
+def fold_crops(crop_logits: torch.Tensor, boxes, img_size: Tuple[int, int],
+               batch: int) -> torch.Tensor:
+    """Add per-crop logits (n_crops*B, ch, cw, C), crop-major, back onto the
+    full grid and average by visit count.  The count matrix depends only on
+    the box grid and is built on the host."""
+    h_img, w_img = img_size
+    C = crop_logits.shape[-1]
+    preds = crop_logits.new_zeros((batch, h_img, w_img, C))
+    count = np.zeros((1, h_img, w_img, 1), np.float32)
+    for (y1, y2, x1, x2) in boxes:
+        count[:, y1:y2, x1:x2, :] += 1.0
+    for i, (y1, y2, x1, x2) in enumerate(boxes):
+        preds[:, y1:y2, x1:x2, :] += crop_logits[i * batch:(i + 1) * batch]
+    return preds / torch.from_numpy(count).to(preds.device, preds.dtype)
+
+
+class Segmentor(nn.Module):
+    """backbone + head (+ HRDA scale attention)."""
+
+    def __init__(self, backbone: nn.Module, head: nn.Module,
+                 scale_attention: Optional[nn.Module] = None,
+                 hrda_output_stride: int = 4):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+        self.scale_attention = scale_attention
+        self.hrda_output_stride = hrda_output_stride
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.backbone(x))
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Eval logits upsampled to the input resolution."""
+        if self.scale_attention is not None:
+            logits = self.hrda_eval(x)
+        else:
+            logits = self.logits(x)
+        return interpolate(logits, x.shape[1:3], mode="bilinear",
+                           align_corners=False)
+
+    def hrda_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """HRDA inference forward: LR full pass + HR slide crops, count-mat
+        fold, sigmoid scale-attention fusion.  Output at H/os."""
+        os_ = self.hrda_output_stride
+        B, H, W, _ = x.shape
+        ch, cw = H // 2, W // 2
+        lr_x = interpolate(x, (ch, cw), mode="bilinear", align_corners=False)
+        boxes = compute_slide_boxes((H, W), (ch, cw), (ch // 2, cw // 2))
+        both = torch.cat([lr_x] + [x[:, y1:y2, x1:x2]
+                                   for (y1, y2, x1, x2) in boxes], dim=0)
+        both_feats = self.backbone(both)
+        lr_feats = [f[:B] for f in both_feats]
+        both_seg = self.head(both_feats)
+        lr_seg, crop_seg = both_seg[:B], both_seg[B:]
+
+        att = torch.sigmoid(self.scale_attention(lr_feats))
+        lr_seg = (1.0 - att) * lr_seg
+        gh, gw = lr_seg.shape[1:3]
+        up_lr_seg = interpolate(lr_seg, (2 * gh, 2 * gw), mode="bilinear",
+                                align_corners=False)
+        up_att = interpolate(att, (2 * gh, 2 * gw), mode="bilinear",
+                             align_corners=False)
+        scaled_boxes = [(y1 // os_, y2 // os_, x1 // os_, x2 // os_)
+                        for (y1, y2, x1, x2) in boxes]
+        hr_seg = fold_crops(crop_seg, scaled_boxes, (H // os_, W // os_), B)
+        return up_att * hr_seg + up_lr_seg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.whole(x)
+
+
+def slide_inference(whole_fn: Callable[[torch.Tensor], torch.Tensor],
+                    img: torch.Tensor, crop_size: Tuple[int, int],
+                    stride: Tuple[int, int]) -> torch.Tensor:
+    """Batched sliding-window inference: ``whole_fn`` maps (N, ch, cw, 3)
+    to (N, ch, cw, C) logits; img is (B, H, W, 3)."""
+    B, H, W, _ = img.shape
+    boxes = compute_slide_boxes((H, W), crop_size, stride)
+    crops = torch.cat([img[:, y1:y2, x1:x2] for (y1, y2, x1, x2) in boxes],
+                      dim=0)
+    return fold_crops(whole_fn(crops), boxes, (H, W), B)

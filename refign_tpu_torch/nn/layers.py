@@ -1,0 +1,290 @@
+"""Core NN layers on NHWC tensors, with the JAX package's numerics.
+
+Counterpart of ``refign_tpu/nn/layers.py``.  Every layer takes and returns
+NHWC (channels-last) tensors.  Parameters are created empty; the model that
+owns them fills them from an explicit ``torch.Generator`` with the init
+helpers below, or loads them (``utils/jax_convert.py``).
+
+Numerics kept from the JAX package:
+
+* ``TorchLayerNorm`` on bf16 folds the whole transform into one fp32 FMA
+  (``y = x*s + t``), as ``refign_tpu/nn/layers.py:126-136`` does.
+* ``TorchBatchNorm`` in eval keeps its running statistics in fp32 and, on
+  bf16 input, applies the fp32 fold ``y = x*a + b``
+  (``refign_tpu/nn/layers.py:248-260``).  Train mode, ``groups > 1`` and
+  sync-BN belong to the training slice and raise here.
+* ``gelu`` is the exact erf form.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "gelu", "Linear", "TorchLayerNorm", "TorchBatchNorm", "TorchConv",
+    "conv2d", "ConvBNReLU", "MLPEmbed", "DropPath", "Dropout2d",
+    "normal_", "uniform_", "kaiming_normal_fanout_",
+]
+
+
+# ---------------------------------------------------------------------------
+# initializers drawing from an explicit generator (same rules as the JAX
+# package's initializers; the numbers differ, as JAX keys and torch
+# generators do)
+# ---------------------------------------------------------------------------
+
+def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def uniform_(t: torch.Tensor, bound: float,
+             generator: torch.Generator) -> None:
+    with torch.no_grad():
+        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+
+def kaiming_normal_fanout_(weight: torch.Tensor,
+                           generator: torch.Generator,
+                           groups: int = 1) -> None:
+    """N(0, sqrt(2/fan_out)), fan_out = kh*kw*O/groups (OIHW weight)."""
+    o, _, kh, kw = weight.shape
+    normal_(weight, math.sqrt(2.0 / (kh * kw * o // groups)), generator)
+
+
+def torch_default_init_(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        generator: torch.Generator) -> None:
+    """torch's Linear/Conv2d default: U(+-1/sqrt(fan_in)) for both."""
+    fan_in = weight[0].numel()
+    bound = 1.0 / math.sqrt(fan_in)
+    uniform_(weight, bound, generator)
+    if bias is not None:
+        uniform_(bias, bound, generator)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch's default."""
+    return F.gelu(x, approximate="none")
+
+
+class Linear(nn.Module):
+    """Dense layer over the last axis, ``weight`` (out, in) as in torch.
+
+    Parameters start empty; the owning model initializes them."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class TorchLayerNorm(nn.Module):
+    """LayerNorm over the last axis (``refign_tpu/nn/layers.py:105-141``).
+
+    fp32: normalize, then affine.  bf16: one fp32 FMA ``x*s + t`` with
+    ``s = rsqrt(var+eps)*scale`` and ``t = bias - mean*rsqrt(var+eps)*scale``
+    (variance as E[x^2]-E[x]^2, clamped at 0), then a cast to bf16.
+    """
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        w = self.weight.float()
+        b = self.bias.float()
+        if x.dtype == torch.bfloat16:
+            m = x32.mean(-1, keepdim=True)
+            m2 = x32.square().mean(-1, keepdim=True)
+            r = torch.rsqrt(torch.clamp(m2 - m.square(), min=0.0) + self.eps)
+            s = r * w
+            t = b - m * r * w
+            return (x32 * s + t).to(x.dtype)
+        mean = x32.mean(-1, keepdim=True)
+        var = (x32 - mean).square().mean(-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * w + b).to(x.dtype)
+
+
+class TorchBatchNorm(nn.Module):
+    """Eval-mode BatchNorm2d on NHWC (``refign_tpu/nn/layers.py:144-264``,
+    running-statistics branch).  Running stats stay fp32 whatever the
+    parameter dtype; train mode belongs to the training slice."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode BatchNorm comes with the training slice; "
+                "call .eval() for inference")
+        mean = self.running_mean.float()
+        var = self.running_var.float()
+        w = self.weight.float()
+        b = self.bias.float()
+        x32 = x.float()
+        if x.dtype == torch.bfloat16:
+            a = w * torch.rsqrt(var + self.eps)
+            return (x32 * a + (b - mean * a)).to(x.dtype)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * w + b).to(x.dtype)
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class TorchConv(nn.Module):
+    """torch.nn.Conv2d on NHWC tensors, OIHW ``weight``.
+
+    An NHWC-contiguous tensor permuted to NCHW is an NCHW tensor in
+    channels_last memory format, so ``F.conv2d`` runs on that view and the
+    result is permuted back without a copy."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Union[int, Tuple[int, int]] = 3,
+                 stride: Union[int, Tuple[int, int]] = 1,
+                 padding: Union[int, Tuple[int, int]] = 0,
+                 dilation: Union[int, Tuple[int, int]] = 1,
+                 groups: int = 1, bias: bool = True):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, kh, kw))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, self.padding, self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+def conv2d(in_channels: int, out_channels: int,
+           kernel_size: Union[int, Tuple[int, int]] = 3,
+           stride: Union[int, Tuple[int, int]] = 1,
+           padding: Union[int, Tuple[int, int]] = 0,
+           dilation: Union[int, Tuple[int, int]] = 1,
+           groups: int = 1, bias: bool = True) -> TorchConv:
+    """torch.nn.Conv2d equivalent on NHWC (see TorchConv)."""
+    return TorchConv(in_channels, out_channels, kernel_size, stride, padding,
+                     dilation, groups, bias)
+
+
+class ConvBNReLU(nn.Module):
+    """conv (+ BN) (+ activation), with the depthwise-separable option
+    (``refign_tpu/nn/layers.py:394-448``).  Padding defaults to
+    ``dilation*(kernel_size-1)//2``; bias 'auto' means bias iff no norm."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 groups: int = 1, padding: Optional[int] = None,
+                 use_norm: bool = True,
+                 activation: Optional[Callable] = F.relu,
+                 bias: Union[str, bool] = "auto",
+                 depthwise_separable: bool = False):
+        super().__init__()
+        if padding is None:
+            padding = dilation * (kernel_size - 1) // 2
+        self.activation = activation
+        self.depthwise_separable = depthwise_separable
+        if depthwise_separable:
+            if kernel_size <= 1 or groups != 1:
+                raise ValueError("depthwise_separable needs kernel_size > 1 "
+                                 "and groups == 1")
+            self.depthwise_conv = ConvBNReLU(
+                in_channels, in_channels, kernel_size, stride, dilation,
+                groups=in_channels, padding=padding, use_norm=use_norm,
+                activation=activation)
+            self.pointwise_conv = ConvBNReLU(
+                in_channels, out_channels, 1, use_norm=use_norm,
+                activation=activation)
+            return
+        use_bias = (not use_norm) if bias == "auto" else bool(bias)
+        self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
+                           padding, dilation, groups, use_bias)
+        self.bn = TorchBatchNorm(out_channels) if use_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.depthwise_separable:
+            return self.pointwise_conv(self.depthwise_conv(x))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """mmseg ConvModule init: kaiming fan_out (relu) conv, zero bias,
+        BN ones/zeros (``refign_tpu/models/heads/daformer.py:20-23``)."""
+        for m in self.modules():
+            if isinstance(m, TorchConv):
+                kaiming_normal_fanout_(m.weight, generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+
+
+class MLPEmbed(nn.Module):
+    """Per-pixel linear embedding, NHWC in and out
+    (``refign_tpu/nn/layers.py:451-466``)."""
+
+    def __init__(self, in_channels: int, embed_dim: int):
+        super().__init__()
+        self.proj = Linear(in_channels, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        torch_default_init_(self.proj.weight, self.proj.bias, generator)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: identity in eval.  Its train-mode draw
+    comes with the training slice."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = drop_prob
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.drop_prob > 0.0:
+            raise NotImplementedError(
+                "train-mode DropPath comes with the training slice")
+        return x
+
+
+class Dropout2d(nn.Module):
+    """Channel-wise dropout on NHWC: identity in eval.  Its train-mode draw
+    comes with the training slice."""
+
+    def __init__(self, rate: float = 0.1):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError(
+                "train-mode Dropout2d comes with the training slice")
+        return x

@@ -1,0 +1,112 @@
+"""Spatial-reduction attention: kernel K1 and its plain version.
+
+Counterpart of ``refign_tpu/ops/attention.py``.  ``sra_attention(q, k, v,
+scale)`` keeps the JAX signature: q (B, N, H, D), k/v (B, M, H, D) ->
+(B, N, H, D) in q's dtype.  On a CUDA tensor it launches the hand-written
+kernel ``csrc/sra_attention.cu`` (forward only); on a CPU tensor it runs
+:func:`sra_attention_reference`.
+
+Numerics follow the TPU kernel (``_make_kernel``): fp32 logits with the
+true row max, fp32 softmax and products.  The JAX package's default bf16
+path (``_attn_einsum_bf16``: bf16 logits, static shift 20) is deliberately
+not reproduced.  The JAX wrapper also pre-scales q in q's dtype; the port
+scales the fp32 logits instead.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["sra_attention", "sra_attention_reference", "MAX_KV", "HEAD_DIM"]
+
+HEAD_DIM = 64
+# the JAX kernel's gate (refign_tpu/ops/attention.py:40); the CUDA kernel
+# streams K/V and has no such limit, but keeps the gate: above it, a CUDA
+# call raises
+MAX_KV = 4096
+
+
+def sra_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain version: fp32 einsum, softmax, einsum (the JAX
+    ``_attn_einsum_fp32``), on the fp32 values of the inputs."""
+    attn = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
+    attn = attn.softmax(dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn, v.float())
+    return out.to(q.dtype)
+
+
+def _lib():
+    lib = _build.load("sra_attention")
+    fn = lib.sra_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:-1]))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "sra_attention on CUDA is forward-only; its backward kernel "
+            "comes with the training slice")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sra_attention kernel takes fp32 or bf16, got "
+                        f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share a dtype")
+    if not (k.device == q.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
+                         f", v {tuple(v.shape)}")
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    if D != HEAD_DIM or k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
+        raise ValueError(f"sra_attention kernel needs head dim {HEAD_DIM} "
+                         f"and matching q/k/v; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if N < 1 or M < 1:
+        raise ValueError("sra_attention needs N >= 1 and M >= 1")
+    if M > MAX_KV:
+        raise ValueError(f"sra_attention kernel takes M <= {MAX_KV}, got {M}")
+    # the kernel reads 16-byte vectors along the head dim
+    q, k, v = (t if _aligned(t) else t.contiguous().clone()
+               for t in (q, k, v))
+    o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 int(q.dtype == torch.bfloat16), B, N, M, H,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"sra_attention kernel launch failed: CUDA error "
+                           f"{err}")
+    sra_attention.launches += 1
+    return o
+
+
+def sra_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """Multi-head SRA attention: q (B, N, H, D), k/v (B, M, H, D) ->
+    (B, N, H, D).  CUDA tensors launch the kernel (``launches`` counts
+    each launch); CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return sra_attention_reference(q, k, v, scale)
+    return _launch(q, k, v, scale)
+
+
+sra_attention.launches = 0

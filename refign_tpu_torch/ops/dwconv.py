@@ -1,0 +1,100 @@
+"""Fused depthwise 3x3 conv + bias + GELU: kernel K2 and its plain version.
+
+Counterpart of ``refign_tpu/ops/dwconv.py``.  ``dwconv3x3_gelu(x, w, b)``
+keeps the JAX signature: NHWC x, HWIO (3, 3, 1, C) w (the OIHW (C, 1, 3, 3)
+view is taken too), (C,) b.  On a CUDA tensor it launches the hand-written
+kernel ``csrc/dwconv3x3_gelu.cu`` (forward only); on a CPU tensor it runs
+:func:`dwconv3x3_gelu_reference`.
+
+GELU is the exact erf form on every dtype, as in the TPU kernel.  The JAX
+package's default bf16 arm uses the tanh form (``refign_tpu/nn/layers.py:
+86-98``); that difference is deliberate.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = ["dwconv3x3_gelu", "dwconv3x3_gelu_reference"]
+
+
+def _as_oihw(w: torch.Tensor, C: int) -> torch.Tensor:
+    if tuple(w.shape) == (3, 3, 1, C):
+        return w.permute(3, 2, 0, 1)
+    if tuple(w.shape) == (C, 1, 3, 3):
+        return w
+    raise ValueError(f"depthwise 3x3 weight must be (3,3,1,{C}) or "
+                     f"({C},1,3,3), got {tuple(w.shape)}")
+
+
+def dwconv3x3_gelu_reference(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor) -> torch.Tensor:
+    """Plain version: fp32 grouped conv + bias + exact GELU, cast to x's
+    dtype (the JAX default arm, in fp32)."""
+    C = x.shape[-1]
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), _as_oihw(w, C).float(),
+                 b.float(), padding=1, groups=C)
+    return F.gelu(y, approximate="none").permute(0, 2, 3, 1).to(x.dtype)
+
+
+def _lib():
+    lib = _build.load("dwconv3x3_gelu")
+    fn = lib.dwconv3x3_gelu_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    if x.requires_grad or w.requires_grad or b.requires_grad:
+        raise NotImplementedError(
+            "dwconv3x3_gelu on CUDA is forward-only; its backward kernels "
+            "(dx, dw, db) come with the training slice")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dwconv3x3_gelu kernel takes fp32 or bf16, got "
+                        f"{x.dtype}")
+    if w.dtype != x.dtype or b.dtype != x.dtype:
+        raise TypeError("x, w and b must share a dtype")
+    if not (w.device == x.device == b.device):
+        raise ValueError("x, w and b must be on one device")
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("dwconv3x3_gelu kernel needs NHWC-contiguous x")
+    B, H, W, C = x.shape
+    if b.shape != (C,):
+        raise ValueError(f"bias must be ({C},), got {tuple(b.shape)}")
+    # tap-major (9, C) weights: one tap of 8 channels is one vector load
+    w9 = _as_oihw(w, C).reshape(C, 9).t().contiguous()
+    b = b.contiguous()
+    y = torch.empty_like(x)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 int(x.dtype == torch.bfloat16), B, H, W, C, stream)
+    if err != 0:
+        raise RuntimeError(f"dwconv3x3_gelu kernel launch failed: CUDA "
+                           f"error {err}")
+    dwconv3x3_gelu.launches += 1
+    return y
+
+
+def dwconv3x3_gelu(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3 (stride 1, pad 1) conv + bias + exact GELU on NHWC.
+    CUDA tensors launch the kernel (``launches`` counts each launch); CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return dwconv3x3_gelu_reference(x, w, b)
+    return _launch(x, w, b)
+
+
+dwconv3x3_gelu.launches = 0

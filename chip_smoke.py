@@ -8,16 +8,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. card: name and power limit (nvidia-smi);
 2. build: every ``refign_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the four MiT-B5 main-path shapes plus a ragged case, with
+   the card, at its main-path shapes (K1, K2: the four MiT-B5 stages; K3:
+   the three UAWarpC levels at the UDA geometry) plus ragged cases, with
    CUDA-event times beside the least time the card could take (bound) and
-   beside one PyTorch library call that computes the same function;
-4. main path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
+   beside one PyTorch library call that computes the same function, where
+   there is one;
+4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
-   for shape and finiteness, each kernel must launch 52 times per forward,
+   for shape and finiteness, K1 and K2 must launch 52 times per forward,
    and the forward must agree with the same model run through the plain
    versions; a small fp32 model checks the kernels' path tightly;
-5. the ``kernels`` JSON line, the card line and, last, the result line.
+5. align path: Refign's align and refine (VGG-16 + UAWarpC, seeded random
+   bf16 weights) on B=4 1024x1024 target/reference images and 19-class
+   logits through ``build_alignment`` and ``refign_align_refine``: K3 must
+   launch 3 times, the probabilities are checked for shape, range and
+   their per-pixel sum, and flow and probabilities must agree with the
+   plain-version run; a small fp32 network checks ``align_forward``
+   tightly;
+6. the ``kernels`` JSON line, the card line and, last, the result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -34,6 +43,12 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
+
+def peak_flops(itemsize: int) -> float:
+    """Peak rate for products of inputs of this size: bf16 products summed
+    in fp32 are tensor-core work, fp32 ones CUDA-core work."""
+    return BF16_TENSOR_FLOPS if itemsize == 2 else FP32_FLOPS
+
 # MiT-B5 at 30 rows of 540^2 (one 1080x1920 image): per stage, launches per
 # forward and the shapes each kernel sees
 B_ROWS = 30
@@ -44,6 +59,13 @@ STAGES = [  # (launches, tokens N, keys M, heads H, dwconv H=W, hidden C)
     (3, 289, 289, 8, 17, 2048),
 ]
 LAUNCHES_PER_FORWARD = sum(s[0] for s in STAGES)  # 52
+
+# UAWarpC local correlation (K3) at the UDA geometry: B=4 1024^2 crops,
+# P=9, one launch per level per align forward: (B, H, W, C) of levels
+# 1, 2, 3 (refign_tpu/models/heads/uawarpc.py:253, :230, :170)
+ALIGN_B, ALIGN_HW = 4, 1024
+CORR_LEVELS = [(4, 256, 256, 128), (4, 128, 128, 256), (4, 32, 32, 256)]
+CORR_PATCH = 9
 
 # elementwise bound for a kernel output in bf16 against the fp32 plain
 # version on the same inputs: one bf16 rounding (2^-8 relative) plus fp32
@@ -59,6 +81,26 @@ E2E_MAX_REL = 5e-2
 E2E_MEAN_REL = 1e-2
 # small fp32 model, kernels against plain versions
 E2E_FP32_REL = 1e-4
+# K3 writes fp32 from bf16 or fp32 inputs: only summation order separates
+# it from its plain version; inputs are unit-norm features as in the head
+CORR_ABS = 1e-5
+# align path, bf16 network, K3 against its plain version: the fp32
+# correlations round to bf16 at the same place in both, so they differ by
+# at most one bf16 ulp where summation order crosses a rounding boundary;
+# that travels through three decoder levels into the flow.  Probabilities:
+# a flow difference can flip the strict in-bounds warp mask of a pixel on
+# the border, which moves that pixel's probabilities by up to the mixing
+# weight, so the bound is on the mean and on the share of such pixels.
+# Each limit is about 10x the reading on an H100 (flow max rel 1.99e-4,
+# mean rel 6.3e-6; probabilities mean abs 3.3e-5, flipped share 2.1e-5).
+ALIGN_FLOW_MAX_REL = 2e-3
+ALIGN_FLOW_MEAN_REL = 1e-4
+ALIGN_PROB_MEAN_ABS = 3e-4
+ALIGN_PROB_FLIP = 0.05      # |dp| counted as a flipped pixel above this
+ALIGN_PROB_FLIP_SHARE = 3e-4
+# probabilities: refine mixes each class with weight s*max(P, M); the sum
+# over classes leaves 1 by at most 1 - P on warped pixels
+PROB_SUM_ABS = 1e-5
 
 
 def log(*a):
@@ -127,11 +169,25 @@ def dwconv_case(gen, B, S, C, dtype):
     return x, w, b
 
 
+def corr_case(gen, B, H, W, C, dtype):
+    """Target and source as the head passes them: unit-norm features, the
+    target NHWC, the warped source the NHWC view of grid_sample's NCHW
+    output."""
+    import torch
+    t = torch.randn(B, H, W, C, generator=gen, device="cuda")
+    s = torch.randn(B, C, H, W, generator=gen, device="cuda")
+    t = t / t.norm(dim=-1, keepdim=True)
+    s = s / s.norm(dim=1, keepdim=True)
+    return t.to(dtype), s.to(dtype).permute(0, 2, 3, 1)
+
+
 def phase_kernels():
     import torch
     import torch.nn.functional as F
     from refign_tpu_torch.ops.attention import (sra_attention,
                                                 sra_attention_reference)
+    from refign_tpu_torch.ops.correlation import (local_correlation,
+                                                  local_correlation_reference)
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                              dwconv3x3_gelu_reference)
 
@@ -144,7 +200,7 @@ def phase_kernels():
         nbytes = (2 * B * N * H * 64 + 2 * B * M * H * 64) * itemsize
         flops = 4.0 * B * H * N * M * 64
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / BF16_TENSOR_FLOPS
+        t_ops = flops / peak_flops(itemsize)
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
@@ -152,7 +208,15 @@ def phase_kernels():
         nbytes = (2 * B * S * S * C + 10 * C) * itemsize
         flops = B * S * S * C * 20.0  # 9 FMAs, bias, GELU
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = flops / FP32_FLOPS
+        t_ops = flops / peak_flops(itemsize)
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+    def corr_bound(B, H, W, C, P, itemsize):
+        nbytes = 2 * B * H * W * C * itemsize + B * H * W * P * P * 4
+        flops = 2.0 * B * H * W * P * P * C
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / peak_flops(itemsize)
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
@@ -164,6 +228,12 @@ def phase_kernels():
               for (n, _, _, _, S, C) in STAGES]
     cases += [("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", bf16),
               ("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", torch.float32)]
+    cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "main", bf16)
+              for lvl in CORR_LEVELS]
+    cases += [("local_correlation", 0, (2, 33, 70, 40, 5), "ragged",
+               torch.float32),
+              ("local_correlation", 0, (1, 17, 45, 40, 9), "ragged",
+               torch.float32)]
 
     for name, n_launch, shape, kind, dtype in cases:
         if name == "sra_attention":
@@ -178,6 +248,15 @@ def phase_kernels():
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, scale=scale)
             bound, bound_by = attn_bound(B, N, M, H, q.element_size())
+        elif name == "local_correlation":
+            B, H, W, C, P = shape
+            t, s = corr_case(gen, B, H, W, C, dtype)
+            ref = local_correlation_reference(t, s, P)
+            got = local_correlation(t, s, P)
+            kernel = lambda: local_correlation(t, s, P)  # noqa: E731
+            plain = lambda: local_correlation_reference(t, s, P)  # noqa
+            library = None  # no single PyTorch call computes it
+            bound, bound_by = corr_bound(B, H, W, C, P, t.element_size())
         else:
             B, S, C = shape
             x, w, b = dwconv_case(gen, B, S, C, dtype)
@@ -190,7 +269,11 @@ def phase_kernels():
                 xc, w, b, padding=1, groups=C))
             bound, bound_by = dw_bound(B, S, C, x.element_size())
         torch.cuda.synchronize()
-        if dtype == bf16:
+        if name == "local_correlation":
+            if got.dtype != torch.float32:
+                raise AssertionError(f"{name}: output {got.dtype}, not fp32")
+            err = check_close(f"{name}{shape}", got, ref, 0.0, CORR_ABS)
+        elif dtype == bf16:
             err = check_close(f"{name}{shape}", got, ref, BF16_REL, BF16_ABS)
         else:
             err = check_close(f"{name}{shape} fp32", got, ref, 0.0, FP32_ABS)
@@ -198,26 +281,39 @@ def phase_kernels():
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
                    ms=time_ms(kernel), plain_ms=time_ms(plain),
-                   library_ms=time_ms(library), bound_ms=bound,
-                   bound_by=bound_by)
+                   library_ms=None if library is None else time_ms(library),
+                   bound_ms=bound, bound_by=bound_by)
         rows.append(row)
-        log(f"  {name:15s} {kind:6s} {row['dtype']:8s} {str(shape):24s} "
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        log(f"  {name:17s} {kind:6s} {row['dtype']:8s} {str(shape):26s} "
             f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
             f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  "
-            f"library {row['library_ms']:.4f} ms")
+            f"library {lib}")
         del got, ref
     return rows
 
 
+def _plain_local_correlation_relu_l2norm(t, s, patch_size):
+    from refign_tpu_torch.ops import correlation
+    return correlation.relu_l2norm(
+        correlation.local_correlation_reference(t, s, patch_size))
+
+
 def plain_versions(enabled: bool):
-    """Test-only switch: route the MiT blocks through the kernels' plain
-    versions (enabled) or back through the kernel wrappers."""
+    """Test-only switch: route the MiT blocks and the UAWarpC head's local
+    correlations through the kernels' plain versions (enabled) or back
+    through the kernel wrappers."""
     from refign_tpu_torch.models import mix_transformer as mt
-    from refign_tpu_torch.ops import attention, dwconv
+    from refign_tpu_torch.models.heads import uawarpc
+    from refign_tpu_torch.ops import attention, correlation, dwconv
     mt.sra_attention = (attention.sra_attention_reference if enabled
                         else attention.sra_attention)
     mt.dwconv3x3_gelu = (dwconv.dwconv3x3_gelu_reference if enabled
                          else dwconv.dwconv3x3_gelu)
+    uawarpc.local_correlation_relu_l2norm = (
+        _plain_local_correlation_relu_l2norm if enabled
+        else correlation.local_correlation_relu_l2norm)
 
 
 def phase_main_path(card):
@@ -286,27 +382,144 @@ def phase_main_path(card):
         raise AssertionError("bf16 forward disagrees with plain versions")
     del ref, diff
 
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        hrda_slide_forward(model, img)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    sec = statistics.median(times)
+    sec, times = warm_median(lambda: hrda_slide_forward(model, img))
     log(f"  warm forward: median {sec * 1e3:.1f} ms over {len(times)} "
         f"({[round(x * 1e3, 1) for x in times]} ms) = {1.0 / sec:.3f} "
         f"images/s on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_forward(model, img, sec)
+    profile_device(lambda: hrda_slide_forward(model, img), sec, "forward")
+    return launches, sec
+
+
+def warm_median(fn, n=5):
+    """Median host-clock seconds of n synchronised calls, and their list."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), times
+
+
+def phase_align(card):
+    import torch
+    import torch.nn.functional as F
+    from refign_tpu_torch.entry import (align_forward, build_alignment,
+                                        refign_align_refine)
+    from refign_tpu_torch.ops.correlation import local_correlation as k3
+
+    # small fp32 network first: K3 against its plain version, tightly
+    small = build_alignment(dtype=torch.float32, device="cuda", seed=1)
+    gen = torch.Generator().manual_seed(1)
+    a, b = (torch.randn(1, 256, 320, 3, generator=gen).cuda()
+            for _ in range(2))
+    flow_k, unc_k = align_forward(small, a, b)
+    plain_versions(True)
+    try:
+        flow_p, unc_p = align_forward(small, a, b)
+    finally:
+        plain_versions(False)
+    rel = ((flow_k - flow_p).abs().max() / flow_p.abs().max()).item()
+    unc_err = (unc_k - unc_p).abs().max().item()
+    log(f"  alignment fp32 1x256x320: K3 vs plain flow max rel {rel:.2e}, "
+        f"uncertainty max abs {unc_err:.2e} (limit {E2E_FP32_REL:g} each)")
+    if not (rel <= E2E_FP32_REL and unc_err <= E2E_FP32_REL):
+        raise AssertionError(f"fp32 alignment: K3 vs plain {rel}, {unc_err}")
+    del small, flow_k, flow_p, unc_k, unc_p
+
+    t0 = time.perf_counter()
+    net = build_alignment(dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"  built VGG-16 + UAWarpC in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (ALIGN_B, ALIGN_HW, ALIGN_HW)
+    img_trg, img_ref = (
+        torch.randn(*shape, 3, generator=gen, device="cuda").bfloat16()
+        for _ in range(2))
+    # teacher-like logits: a coarse field at 1/16, upsampled
+    logits_trg, logits_ref = (F.interpolate(
+        3.0 * torch.randn(ALIGN_B, 19, ALIGN_HW // 16, ALIGN_HW // 16,
+                          generator=gen, device="cuda"),
+        (ALIGN_HW, ALIGN_HW), mode="bilinear", align_corners=False
+    ).permute(0, 2, 3, 1).bfloat16() for _ in range(2))
+
+    def run():
+        return refign_align_refine(net, logits_trg, logits_ref, img_trg,
+                                   img_ref)
+
+    torch.cuda.reset_peak_memory_stats()
+    k3.launches = 0
+    probs, mask, cert = run()
+    torch.cuda.synchronize()
+    launches = k3.launches
+    log(f"  launches in one align and refine: local_correlation {launches}")
+    if launches != len(CORR_LEVELS):
+        raise AssertionError(f"local_correlation launched {launches} times, "
+                             f"expected {len(CORR_LEVELS)}")
+    if tuple(probs.shape) != (*shape, 19) or probs.dtype != torch.float32:
+        raise AssertionError(f"probabilities {tuple(probs.shape)} "
+                             f"{probs.dtype}")
+    if not (torch.isfinite(probs).all() and (probs >= 0).all()
+            and (probs <= 1).all()):
+        raise AssertionError("probabilities not finite in [0, 1]")
+    sum_err = (probs.sum(-1) - 1).abs()
+    bound = torch.where(mask, 1.0 - cert[..., 0], 0.0) + PROB_SUM_ABS
+    log(f"  probabilities {tuple(probs.shape)} fp32: |sum - 1| max "
+        f"{sum_err.max().item():.3e} (bound 1 - P on warped pixels, "
+        f"{PROB_SUM_ABS:g} elsewhere); warp mask true on "
+        f"{mask.float().mean().item():.4f} of pixels; confidence mean "
+        f"{cert.float().mean().item():.4f}")
+    if not (sum_err <= bound).all():
+        raise AssertionError("probability sums beyond their bound")
+    flow_k, _ = align_forward(net, img_trg, img_ref)
+
+    plain_versions(True)
+    try:
+        probs_p, _, _ = run()
+        flow_p, _ = align_forward(net, img_trg, img_ref)
+    finally:
+        plain_versions(False)
+    fdiff = (flow_k - flow_p).abs()
+    f_max = (fdiff.max() / flow_p.abs().max()).item()
+    f_mean = (fdiff.mean() / flow_p.abs().mean()).item()
+    pdiff = (probs - probs_p).abs()
+    p_mean = pdiff.mean().item()
+    p_flip = (pdiff.amax(-1) > ALIGN_PROB_FLIP).float().mean().item()
+    log(f"  bf16 align vs plain versions: flow max rel {f_max:.3e} (limit "
+        f"{ALIGN_FLOW_MAX_REL:g}), mean rel {f_mean:.3e} (limit "
+        f"{ALIGN_FLOW_MEAN_REL:g}), |flow| max "
+        f"{flow_p.abs().max().item():.2f} px; probabilities mean abs "
+        f"{p_mean:.3e} (limit {ALIGN_PROB_MEAN_ABS:g}), max abs "
+        f"{pdiff.max().item():.3e}, share of pixels beyond "
+        f"{ALIGN_PROB_FLIP:g} {p_flip:.2e} (limit {ALIGN_PROB_FLIP_SHARE:g})")
+    if not (f_max <= ALIGN_FLOW_MAX_REL and f_mean <= ALIGN_FLOW_MEAN_REL
+            and p_mean <= ALIGN_PROB_MEAN_ABS
+            and p_flip <= ALIGN_PROB_FLIP_SHARE):
+        raise AssertionError("bf16 align disagrees with plain versions")
+    del probs_p, flow_p, pdiff, fdiff, sum_err, bound
+
+    sec, times = warm_median(run)
+    log(f"  warm align and refine (B=4, 1024^2): median {sec * 1e3:.1f} ms "
+        f"over {len(times)} ({[round(x * 1e3, 1) for x in times]} ms) = "
+        f"{ALIGN_B / sec:.2f} image pairs/s on {card}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_device(run, sec, "align and refine", top_n=25)
     return launches, sec
 
 
 KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 sra_attention", ("sra_attention_kernel",)),
     ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
-    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
-    ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd")),
+    ("K3 local_correlation", ("local_correlation_kernel",)),
+    # F.grid_sample runs as cuDNN's sampler on these shapes
+    ("grid_sample", ("grid_sampler", "bilinear_sampler")),
+    # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
+    ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
+    ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_",
+                         "cublas")),
     ("resize", ("upsample", "interpolate", "bilinear")),
     ("reduction", ("reduce", "norm")),
     ("copy / cat", ("copy", "cat", "Cat")),
@@ -314,15 +527,16 @@ KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
 ]
 
 
-def profile_forward(model, img, sec):
-    """Device time of one warm forward by kernel group (torch.profiler)."""
+def profile_device(fn, sec, what, top_n=12):
+    """Device time of one warm call of ``fn`` by kernel group
+    (torch.profiler), and its ``top_n`` kernels; ``sec`` is its warm
+    host-clock time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from refign_tpu_torch.entry import hrda_slide_forward
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        hrda_slide_forward(model, img)
+        fn()
         torch.cuda.synchronize()
     groups, top = {}, []
     for evt in prof.key_averages():
@@ -338,12 +552,12 @@ def profile_forward(model, img, sec):
     if total == 0:
         log("  profiler: no device time recorded")
         return
-    log(f"  profiled forward: device busy {total / 1e3:.1f} ms of the "
-        f"{sec * 1e3:.1f} ms warm forward ({100 * total / 1e3 / (sec * 1e3):.1f}"
-        " %)")
+    log(f"  profiled {what}: device busy {total / 1e3:.1f} ms of the "
+        f"{sec * 1e3:.1f} ms warm {what} "
+        f"({100 * total / 1e3 / (sec * 1e3):.1f} %)")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:22s} {us / 1e3:8.2f} ms  {100 * us / total:5.1f} %")
-    for us, n, key in sorted(top, reverse=True)[:12]:
+    for us, n, key in sorted(top, reverse=True)[:top_n]:
         log(f"    top: {us / 1e3:8.2f} ms  x{n:<5d} {key[:100]}")
 
 
@@ -365,36 +579,43 @@ def main() -> int:
     refign_tpu_torch.full_fp32_precision()
 
     card = card_line()
-    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"[2/5] built {len(logs)} kernel sources in "
+    log(f"[2/6] built {len(logs)} kernel sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/5] kernels against plain versions (bf16 limit "
+    log("[3/6] kernels against plain versions (bf16 limit "
         f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g})")
     rows = phase_kernels()
 
-    log("[4/5] main path")
+    log("[4/6] HRDA* path")
     launches, sec = phase_main_path(card)
+    log("[5/6] align path")
+    launches["local_correlation"], align_sec = phase_align(card)
 
-    log(f"[5/5] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[6/6] done in {time.perf_counter() - t_start:.1f} s")
     sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
                                  "refign_tpu/ops/attention.py:82"),
                "dwconv3x3_gelu": ("refign_tpu_torch/csrc/dwconv3x3_gelu.cu",
-                                  "refign_tpu/ops/dwconv.py:102")}
+                                  "refign_tpu/ops/dwconv.py:102"),
+               "local_correlation": (
+                   "refign_tpu_torch/csrc/local_correlation.cu",
+                   "refign_tpu/ops/correlation.py:106")}
     kernels = []
     for name, (src, replaces) in sources.items():
         main_rows = [r for r in rows if r["name"] == name
                      and r["kind"] == "main"]
 
         def per_forward(key):
+            if any(r[key] is None for r in main_rows):
+                return None
             return sum(r[key] * r["launches_per_forward"] for r in main_rows)
 
         bound_ops = [r for r in main_rows if r["bound_by"] == "operations"]
@@ -408,8 +629,10 @@ def main() -> int:
             bound_by=("operations" if 2 * len(bound_ops) > len(main_rows)
                       else "bytes"),
             library_ms=per_forward("library_ms")))
-    log("kernel times are per forward: the sum over the 52 main-path "
-        f"launches of one 1080x1920 image; forward {1.0 / sec:.3f} images/s")
+    log("kernel times are per forward: K1 and K2 summed over their 52 "
+        "launches in one 1080x1920 HRDA* forward "
+        f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
+        f"1024^2 align and refine ({align_sec * 1e3:.1f} ms)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

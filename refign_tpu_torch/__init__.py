@@ -1,9 +1,11 @@
 """refign-tpu in PyTorch: the Refign models for NVIDIA Hopper cards.
 
 The package mirrors ``refign_tpu`` module by module (``nn``, ``ops``,
-``models``, ``models/heads``, ``utils``) and keeps its NHWC layout at every
-public function.  The two Pallas kernels of the HRDA★ inference path are
-CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first use
+``models``, ``models/heads``, ``alignment``, ``uda``, ``utils``) and keeps
+its NHWC layout at every public function.  The three Pallas kernels of the
+JAX package (SRA attention and the fused depthwise conv on the HRDA★
+inference path, the local correlation on the alignment path) are CUDA C++
+kernels under ``csrc/``, built with ``nvcc`` at first use
 (``ops/_build.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on

@@ -236,13 +236,11 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
            int H, Strides qs, Strides ks, Strides vs, Strides os, float scale,
            cudaStream_t stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sra_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
+  // the attribute belongs to the current device: set it before every
+  // launch so a process that launches on several cards gets it on each
+  const cudaError_t err = cudaFuncSetAttribute(
+      sra_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + TQ - 1) / TQ, H, B);
   sra_attention_kernel<T><<<grid, NT, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),

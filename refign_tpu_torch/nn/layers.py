@@ -13,7 +13,8 @@ Numerics kept from the JAX package:
   bf16 input, applies the fp32 fold ``y = x*a + b``
   (``refign_tpu/nn/layers.py:248-260``).  Train mode, ``groups > 1`` and
   sync-BN belong to the training slice and raise here.
-* ``gelu`` is the exact erf form.
+* ``gelu`` is the exact erf form; ``leaky_relu`` has slope 0.1, as in
+  the matching modules.
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "gelu", "Linear", "TorchLayerNorm", "TorchBatchNorm", "TorchConv",
-    "conv2d", "ConvBNReLU", "MLPEmbed", "DropPath", "Dropout2d",
-    "normal_", "uniform_", "kaiming_normal_fanout_",
+    "gelu", "leaky_relu", "Linear", "TorchLayerNorm", "TorchBatchNorm",
+    "TorchConv", "conv2d", "ConvBNReLU", "MLPEmbed", "DropPath", "Dropout2d",
+    "normal_", "uniform_", "kaiming_normal_fanout_", "torch_default_init_",
+    "init_convs_torch_default_", "init_convs_kaiming_fanout_",
 ]
 
 
@@ -69,6 +71,12 @@ def torch_default_init_(weight: torch.Tensor, bias: Optional[torch.Tensor],
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, torch's default."""
     return F.gelu(x, approximate="none")
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.1) -> torch.Tensor:
+    """LeakyReLU with the matching modules' slope 0.1
+    (``refign_tpu/nn/layers.py:100-101``)."""
+    return F.leaky_relu(x, negative_slope)
 
 
 class Linear(nn.Module):
@@ -191,6 +199,27 @@ def conv2d(in_channels: int, out_channels: int,
                      dilation, groups, bias)
 
 
+def init_convs_torch_default_(module: nn.Module,
+                              generator: torch.Generator) -> None:
+    """torch's Conv2d default on every conv of ``module``, in module order:
+    U(+-1/sqrt(fan_in)) weight and bias (the JAX ``TorchConv`` default,
+    ``refign_tpu/nn/layers.py:40-55``); BN keeps ones/zeros."""
+    for m in module.modules():
+        if isinstance(m, TorchConv):
+            torch_default_init_(m.weight, m.bias, generator)
+
+
+def init_convs_kaiming_fanout_(module: nn.Module,
+                               generator: torch.Generator) -> None:
+    """Kaiming-normal fan-out (relu) weight and zero bias on every conv of
+    ``module`` (the VGG init, ``refign_tpu/models/vgg.py:23-24``)."""
+    for m in module.modules():
+        if isinstance(m, TorchConv):
+            kaiming_normal_fanout_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+
+
 class ConvBNReLU(nn.Module):
     """conv (+ BN) (+ activation), with the depthwise-separable option
     (``refign_tpu/nn/layers.py:394-448``).  Padding defaults to
@@ -238,11 +267,7 @@ class ConvBNReLU(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """mmseg ConvModule init: kaiming fan_out (relu) conv, zero bias,
         BN ones/zeros (``refign_tpu/models/heads/daformer.py:20-23``)."""
-        for m in self.modules():
-            if isinstance(m, TorchConv):
-                kaiming_normal_fanout_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+        init_convs_kaiming_fanout_(self, generator)
 
 
 class MLPEmbed(nn.Module):

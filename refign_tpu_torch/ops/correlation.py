@@ -1,0 +1,161 @@
+"""Local and global feature correlation: kernel K3 and its plain version.
+
+Counterpart of ``refign_tpu/ops/correlation.py``.  NHWC throughout.  For an
+odd patch size P (R = (P-1)//2) the local correlation is
+
+    out[b, h, w, (dy+R)*P + (dx+R)] = sum_c t[b, h, w, c] * s[b, h+dy, w+dx, c]
+
+with zeros where (h+dy, w+dx) falls outside the image, computed in fp32
+whatever the input dtype.  ``local_correlation(t, s, P)`` launches the
+hand-written kernel ``csrc/local_correlation.cu`` on CUDA tensors (forward
+only) and runs :func:`local_correlation_reference` on CPU tensors.
+
+The global correlation is a plain fp32 batched product (``torch.bmm``), as
+the JAX package leaves it to XLA outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = [
+    "local_correlation", "local_correlation_reference",
+    "relu_l2norm", "local_correlation_relu_l2norm", "global_correlation",
+    "mutual_matching", "global_correlation_relu_l2norm", "MAX_PATCH",
+]
+
+# the kernel keeps P accumulators per pixel in registers; P = 9 on the path
+MAX_PATCH = 9
+
+
+def _check_patch(patch_size: int) -> None:
+    if patch_size % 2 != 1 or not 1 <= patch_size <= MAX_PATCH:
+        raise ValueError(f"patch_size must be odd and <= {MAX_PATCH}, got "
+                         f"{patch_size}")
+
+
+def local_correlation_reference(t: torch.Tensor, s: torch.Tensor,
+                                patch_size: int = 9) -> torch.Tensor:
+    """Plain version: the static shift loop of the JAX package
+    (``_local_correlation_xla``) on the fp32 values of the inputs."""
+    _check_patch(patch_size)
+    B, H, W, _ = t.shape
+    R = (patch_size - 1) // 2
+    t32 = t.float()
+    s_pad = F.pad(s.float(), (0, 0, R, R, R, R))
+    outs = [(t32 * s_pad[:, dy:dy + H, dx:dx + W]).sum(-1)
+            for dy in range(patch_size) for dx in range(patch_size)]
+    return torch.stack(outs, dim=-1)
+
+
+def _lib():
+    lib = _build.load("local_correlation")
+    fn = lib.local_correlation_forward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(t: torch.Tensor, s: torch.Tensor,
+            patch_size: int) -> torch.Tensor:
+    if t.requires_grad or s.requires_grad:
+        raise NotImplementedError(
+            "local_correlation on CUDA is forward-only; its backward kernels "
+            "come with UAWarpC training")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"local_correlation kernel takes fp32 or bf16, got "
+                        f"{t.dtype}")
+    if s.dtype != t.dtype:
+        raise TypeError("target and source must share a dtype")
+    if s.device != t.device:
+        raise ValueError("target and source must be on one device")
+    if t.dim() != 4 or s.shape != t.shape:
+        raise ValueError(f"target and source must be NHWC of one shape, got "
+                         f"{tuple(t.shape)} and {tuple(s.shape)}")
+    B, H, W, C = t.shape
+    if B > 65535:
+        raise ValueError(f"local_correlation kernel takes B <= 65535, got {B}")
+    out = torch.empty((B, H, W, patch_size * patch_size),
+                      dtype=torch.float32, device=t.device)
+    if out.numel() == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        # read through the strides: the warped source arrives as the NHWC
+        # view of grid_sample's NCHW output
+        err = fn(t.data_ptr(), s.data_ptr(), out.data_ptr(),
+                 int(t.dtype == torch.bfloat16), B, H, W, C, patch_size,
+                 *t.stride(), *s.stride(), stream)
+    if err != 0:
+        raise RuntimeError(f"local_correlation kernel launch failed: CUDA "
+                           f"error {err}")
+    local_correlation.launches += 1
+    return out
+
+
+def local_correlation(t: torch.Tensor, s: torch.Tensor,
+                      patch_size: int = 9) -> torch.Tensor:
+    """(B,H,W,C) target x (B,H,W,C) source -> (B,H,W,P*P) fp32 volume.
+    CUDA tensors launch the kernel (``launches`` counts each launch); CPU
+    tensors take the plain version."""
+    _check_patch(patch_size)
+    if t.device.type == "cpu":
+        return local_correlation_reference(t, s, patch_size)
+    return _launch(t, s, patch_size)
+
+
+local_correlation.launches = 0
+
+
+def relu_l2norm(corr: torch.Tensor) -> torch.Tensor:
+    """ReLU, then L2 over the last axis with the ``max(ss, 1e-24)`` clamp
+    (torch ``F.normalize``'s eps 1e-12 on the norm)."""
+    corr = corr.clamp_min(0.0)
+    ss = corr.square().sum(-1, keepdim=True)
+    return corr / ss.clamp_min(1e-24).sqrt()
+
+
+def local_correlation_relu_l2norm(t: torch.Tensor, s: torch.Tensor,
+                                  patch_size: int = 9) -> torch.Tensor:
+    """ReLU + L2-normalised local correlation, fp32
+    (``refign_tpu/ops/correlation.py:174-184``)."""
+    return relu_l2norm(local_correlation(t, s, patch_size))
+
+
+def global_correlation(source: torch.Tensor,
+                       target: torch.Tensor) -> torch.Tensor:
+    """(B,Hs,Ws,C) source, (B,Ht,Wt,C) target -> (B,Ht,Wt,Hs*Ws) fp32; the
+    last axis is the source position, H first."""
+    B, Ht, Wt, C = target.shape
+    Hs, Ws = source.shape[1:3]
+    corr = torch.bmm(target.float().reshape(B, Ht * Wt, C),
+                     source.float().reshape(B, Hs * Ws, C).transpose(1, 2))
+    return corr.reshape(B, Ht, Wt, Hs * Ws)
+
+
+def mutual_matching(corr: torch.Tensor) -> torch.Tensor:
+    """Cyclic-consistency reweighting of a (B,Ht,Wt,Hs*Ws) volume:
+    corr * (corr / max over source) * (corr / max over target)."""
+    eps = 1e-5
+    max_src = corr.amax(dim=-1, keepdim=True)
+    max_trg = corr.amax(dim=(1, 2), keepdim=True)
+    return corr * ((corr / (max_src + eps)) * (corr / (max_trg + eps)))
+
+
+def global_correlation_relu_l2norm(source: torch.Tensor,
+                                   target: torch.Tensor,
+                                   cyclic_consistency: bool = True
+                                   ) -> torch.Tensor:
+    """GlobalFeatureCorrelationLayer (``refign_tpu/ops/correlation.py:
+    220-229``), fp32."""
+    corr = global_correlation(source, target)
+    if cyclic_consistency:
+        corr = mutual_matching(corr)
+    return relu_l2norm(corr)

@@ -80,8 +80,8 @@ def load_jax_variables(module: nn.Module,
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{key}: shape {tuple(arr.shape)} from flax, "
                              f"{tuple(t.shape)} in the module")
-        new[key] = torch.from_numpy(
-            np.ascontiguousarray(arr, dtype=np.float32)).to(t.dtype)
+        new[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            t.dtype)
     n_flax = sum(_count_leaves(variables.get(c, {}))
                  for c in ("params", "batch_stats"))
     if n_flax != len(new):
@@ -89,3 +89,14 @@ def load_jax_variables(module: nn.Module,
                          f"{len(new)}")
     module.load_state_dict(new)
     return module
+
+
+def load_alignment_params(net: nn.Module,
+                          align_params: Mapping[str, Any]) -> nn.Module:
+    """Fill an ``AlignmentNet`` from the JAX package's alignment trees
+    ``{"backbone": params, "head": params, "head_stats": batch_stats}``
+    (the layout of ``align_params`` in the UDA train step)."""
+    load_jax_variables(net.backbone, {"params": align_params["backbone"]})
+    load_jax_variables(net.head, {"params": align_params["head"],
+                                  "batch_stats": align_params["head_stats"]})
+    return net

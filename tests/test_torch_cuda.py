@@ -18,6 +18,8 @@ import torch
 from refign_tpu_torch import full_fp32_precision
 from refign_tpu_torch.ops.attention import (sra_attention,
                                             sra_attention_reference)
+from refign_tpu_torch.ops.correlation import (local_correlation,
+                                              local_correlation_reference)
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                          dwconv3x3_gelu_reference)
 
@@ -100,3 +102,70 @@ def test_dwconv_kernel_refusals(gen):
         dwconv3x3_gelu(x.permute(0, 2, 3, 1), w, b)  # not NHWC-contiguous
     with pytest.raises(NotImplementedError):
         dwconv3x3_gelu(x[..., :4].contiguous().requires_grad_(), w, b)
+
+
+def _unit_features(gen, B, H, W, C, dtype):
+    x = torch.randn(B, H, W, C, generator=gen, device="cuda")
+    return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,P", [(1, 1, 1, 1, 9), (2, 9, 33, 40, 9),
+                                       (1, 17, 31, 13, 5), (2, 8, 32, 128, 9),
+                                       (1, 12, 70, 24, 3), (1, 5, 6, 7, 7),
+                                       (1, 4, 40, 8, 1)])
+def test_local_correlation_kernel_matches_plain(gen, dtype, B, H, W, C, P):
+    t = _unit_features(gen, B, H, W, C, dtype)
+    s = _unit_features(gen, B, H, W, C, dtype)
+    before = local_correlation.launches
+    got = local_correlation(t, s, P)
+    assert local_correlation.launches == before + 1
+    ref = local_correlation_reference(t, s, P)
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_local_correlation_kernel_strided_source(gen):
+    """The source as the NHWC view of an NCHW tensor (grid_sample's
+    output), and a channel-sliced target."""
+    t = _unit_features(gen, 2, 19, 45, 48, torch.bfloat16)[..., :40]
+    s = _unit_features(gen, 2, 40, 19, 45, torch.bfloat16).permute(0, 2, 3, 1)
+    got = local_correlation(t, s, 9)
+    ref = local_correlation_reference(t.contiguous(), s.contiguous(), 9)
+    assert (got - ref).abs().max().item() <= 1e-5
+
+
+def test_kernels_launch_on_every_device(gen):
+    """K1 and K3 need more than 48 KB of dynamic shared memory, an
+    attribute set per device: after a launch on cuda:0 each kernel must
+    still launch, and agree, on every other card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    q = torch.randn(1, 70, 2, 64, generator=gen, device="cuda")
+    k = torch.randn(1, 33, 2, 64, generator=gen, device="cuda")
+    t = _unit_features(gen, 1, 9, 33, 40, torch.float32)
+    s = _unit_features(gen, 1, 9, 33, 40, torch.float32)
+    x = torch.randn(1, 7, 9, 16, generator=gen, device="cuda")
+    w = torch.randn(3, 3, 1, 16, generator=gen, device="cuda")
+    b = torch.randn(16, generator=gen, device="cuda")
+    for dev in range(torch.cuda.device_count()):
+        qd, kd, td, sd, xd, wd, bd = (a.to(f"cuda:{dev}")
+                                      for a in (q, k, t, s, x, w, b))
+        got = sra_attention(qd, kd, kd, 0.125)
+        assert got.device == qd.device
+        _close(got, sra_attention_reference(qd, kd, kd, 0.125), torch.float32)
+        got = local_correlation(td, sd, 9)
+        assert (got - local_correlation_reference(td, sd, 9)
+                ).abs().max().item() <= 1e-5
+        _close(dwconv3x3_gelu(xd, wd, bd),
+               dwconv3x3_gelu_reference(xd, wd, bd), torch.float32)
+
+
+def test_local_correlation_kernel_refusals(gen):
+    t = torch.randn(1, 4, 5, 6, device="cuda")
+    with pytest.raises(NotImplementedError):
+        local_correlation(t.clone().requires_grad_(), t, 9)
+    with pytest.raises(TypeError):
+        local_correlation(t, t.bfloat16(), 9)
+    with pytest.raises(ValueError):
+        local_correlation(t, t, 11)

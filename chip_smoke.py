@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at its main-path shapes (K1, K2: the four MiT-B5 stages; K3:
    the three UAWarpC levels at the UDA geometry) plus ragged cases, with
-   CUDA-event times beside the least time the card could take (bound) and
-   beside one PyTorch library call that computes the same function, where
-   there is one;
+   CUDA-event times (batches of back-to-back calls) beside the least time
+   the card could take (bound), the share of that bound reached, and one
+   PyTorch library call that computes the same function, where there is
+   one;
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
@@ -26,12 +27,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    their per-pixel sum, and flow and probabilities must agree with the
    plain-version run; a small fp32 network checks ``align_forward``
    tightly;
-6. the ``kernels`` JSON line, the card line and, last, the result line.
+6. each kernel's time per call of its path (K1 and K2 summed over the 52
+   launches of a forward, beside SDPA's and cuDNN conv + gelu's sums; K3
+   over an align), the ``kernels`` JSON line, the card line and, last, the
+   result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +112,23 @@ def log(*a):
     print(*a, flush=True)
 
 
+def ptxas_summary(text):
+    """One line per kernel from nvcc's -Xptxas -v log: its (mangled) name,
+    registers and spills."""
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), None
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,8 +137,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_ms(fn, reps=20, warmup=3) -> float:
-    """Median CUDA-event time of one call, over ``reps`` calls."""
+def time_ms(fn, reps=20, warmup=3, batch=10) -> float:
+    """CUDA-event time of one call: the median over ``reps`` samples, each
+    of ``batch`` back-to-back calls, so a wrapper's host time overlaps the
+    previous call's device time as it does in the model (one call between
+    two events would time the host where it is the slower)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -126,10 +151,11 @@ def time_ms(fn, reps=20, warmup=3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -283,13 +309,14 @@ def phase_kernels():
                    ms=time_ms(kernel), plain_ms=time_ms(plain),
                    library_ms=None if library is None else time_ms(library),
                    bound_ms=bound, bound_by=bound_by)
+        row["bound_share"] = bound / row["ms"]
         rows.append(row)
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
         log(f"  {name:17s} {kind:6s} {row['dtype']:8s} {str(shape):26s} "
             f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
-            f"{bound:.4f} ms ({bound_by})  plain {row['plain_ms']:.4f} ms  "
-            f"library {lib}")
+            f"{bound:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
+            f"of it)  plain {row['plain_ms']:.4f} ms  library {lib}")
         del got, ref
     return rows
 
@@ -587,9 +614,8 @@ def main() -> int:
     log(f"[2/6] built {len(logs)} kernel sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(text):
+            log(f"  {name}: {line}")
 
     log("[3/6] kernels against plain versions (bf16 limit "
         f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g})")
@@ -619,20 +645,26 @@ def main() -> int:
             return sum(r[key] * r["launches_per_forward"] for r in main_rows)
 
         bound_ops = [r for r in main_rows if r["bound_by"] == "operations"]
+        ms, bound = per_forward("ms"), per_forward("bound_ms")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
-            ms=per_forward("ms"), plain_ms=per_forward("plain_ms"),
-            bound_ms=per_forward("bound_ms"),
+            ms=ms, plain_ms=per_forward("plain_ms"), bound_ms=bound,
             bound_by=("operations" if 2 * len(bound_ops) > len(main_rows)
                       else "bytes"),
-            library_ms=per_forward("library_ms")))
+            library_ms=per_forward("library_ms"), bound_share=bound / ms))
     log("kernel times are per forward: K1 and K2 summed over their 52 "
         "launches in one 1080x1920 HRDA* forward "
         f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
         f"1024^2 align and refine ({align_sec * 1e3:.1f} ms)")
+    for k, lib in zip(kernels, ("SDPA", "cuDNN conv + gelu", None)):
+        log(f"  {k['name']:17s} {k['ms']:.3f} ms per call of its path, "
+            f"bound {k['bound_ms']:.4f} ms ({100 * k['bound_share']:.1f} % "
+            "of it)" + ("" if lib is None else
+                        f", {lib} {k['library_ms']:.3f} ms "
+                        f"({k['ms'] / k['library_ms']:.2f}x)"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time K1 and K2 of two checkouts with one timer on one NVIDIA card.
+
+    python3 kernel_ab.py OTHER_CHECKOUT
+
+Builds ``refign_tpu_torch/csrc/{sra_attention,dwconv3x3_gelu}.cu`` of this
+checkout and of OTHER_CHECKOUT (for example a ``git archive`` of the parent
+commit) with the same nvcc flags, calls each kernel straight through its C
+entry point (no Python wrapper, so no host time) at the four MiT-B5 shapes
+of ``chip_smoke.py``, checks each output against the plain version within
+``chip_smoke.py``'s bf16 limit, and prints the times of the runs other,
+this, this, other, then the best of each checkout per shape.  Sources whose
+K2 entry point predates the weight strides get the tap-major (9, C) copy
+of the weights that their wrapper made.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ("sra_attention", "dwconv3x3_gelu")
+
+
+def build(root, tag):
+    from refign_tpu_torch.ops import _build
+    out_dir = os.path.join(HERE, "refign_tpu_torch", "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for k in KERNELS:
+        src = os.path.join(root, "refign_tpu_torch", "csrc", f"{k}.cu")
+        out = os.path.join(out_dir, f"{tag}_{k}.so")
+        procs[k] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out,
+            src)
+    libs = {}
+    for k, (p, out, src) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        with open(src) as f:
+            strided = "w_si" in f.read()
+        libs[k] = (ctypes.CDLL(out), strided)
+    return libs
+
+
+def k1_call(lib, q, k, v, o, scale, stream):
+    fn = lib.sra_attention_forward
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+    B, N, H, _ = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, N,
+            k.shape[1], H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], scale, stream)
+    return lambda: fn(*args)
+
+
+def k2_call(lib, strided, x, w, b, y, stream):
+    fn = lib.dwconv3x3_gelu_forward
+    B, H, W, C = x.shape
+    if strided:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        sc, _, si, sj = w.stride()
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 1, B, H,
+                W, C, si, sj, sc, stream)
+    else:
+        w9 = w.reshape(C, 9).t().contiguous()
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(), 1, B, H,
+                W, C, stream)
+        return lambda keep=w9: fn(*args)  # the copy lives with the closure
+    return lambda: fn(*args)
+
+
+def main() -> int:
+    import torch
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke
+    from refign_tpu_torch.ops.attention import sra_attention_reference
+    from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu_reference
+
+    libs = {"this": build(HERE, "this"),
+            "other": build(os.path.abspath(sys.argv[1]), "other")}
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scale = 64 ** -0.5
+    cases = {"K1": [], "K2": []}
+    for n, N, M, H, S, C in chip_smoke.STAGES:
+        q, k, v = chip_smoke.attention_case(gen, chip_smoke.B_ROWS, N, M, H,
+                                            torch.bfloat16)
+        ref = sra_attention_reference(q.float(), k.float(), v.float(), scale)
+        cases["K1"].append((n, f"B*H={chip_smoke.B_ROWS * H} N={N} M={M}",
+                            ref, torch.empty_like(q),
+                            lambda t, o, q=q, k=k, v=v: k1_call(
+                                libs[t]["sra_attention"][0], q, k, v, o,
+                                scale, stream)))
+        x, w, b = chip_smoke.dwconv_case(gen, chip_smoke.B_ROWS, S, C,
+                                         torch.bfloat16)
+        ref = dwconv3x3_gelu_reference(x.float(), w.float(), b.float())
+        cases["K2"].append((n, f"({chip_smoke.B_ROWS},{S},{S},{C})", ref,
+                            torch.empty_like(x),
+                            lambda t, y, x=x, w=w, b=b: k2_call(
+                                *libs[t]["dwconv3x3_gelu"], x, w, b, y,
+                                stream)))
+
+    best = {}
+    for rnd, tag in enumerate(("other", "this", "this", "other")):
+        for name, rows in cases.items():
+            times = []
+            for n, label, ref, out, make in rows:
+                fn = make(tag, out)
+                if fn() != 0:
+                    raise RuntimeError(f"{name} ({tag}) launch failed")
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs()
+                bad = int((err > chip_smoke.BF16_REL * ref.abs()
+                           + chip_smoke.BF16_ABS).sum())
+                if bad:
+                    raise AssertionError(f"{name} {label} ({tag}): {bad} "
+                                         "elements beyond the bf16 limit")
+                t = chip_smoke.time_ms(fn)
+                times.append(t)
+                key = (name, label, tag)
+                best[key] = min(best.get(key, t), t)
+            per_fwd = sum(r[0] * t for r, t in zip(rows, times))
+            print(f"run {rnd} {tag:5s} {name}: "
+                  f"{[round(t, 4) for t in times]} ms per launch, "
+                  f"{per_fwd:.3f} ms per forward", flush=True)
+    for name, rows in cases.items():
+        for n, label, *_ in rows:
+            o, t = best[(name, label, "other")], best[(name, label, "this")]
+            print(f"{name} {label} x{n}: other {o:.4f} ms, this {t:.4f} ms "
+                  f"({o / t:.2f}x)")
+        for tag in ("other", "this"):
+            tot = sum(r[0] * best[(name, r[1], tag)] for r in rows)
+            print(f"{name} best per forward, {tag}: {tot:.3f} ms")
+    print(chip_smoke.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,10 @@ Numerics follow the TPU kernel (``_make_kernel``): fp32 logits with the
 true row max, fp32 softmax and products.  The JAX package's default bf16
 path (``_attn_einsum_bf16``: bf16 logits, static shift 20) is deliberately
 not reproduced.  The JAX wrapper also pre-scales q in q's dtype; the port
-scales the fp32 logits instead.
+scales the fp32 logits instead.  On bf16 tensors the kernel runs both
+products on the tensor cores, the fp32 probabilities entering P V as a
+bf16 hi + lo pair (~16 bits); ``tests/test_torch_attention_numerics.py``
+emulates that arithmetic and holds it to the bf16 limit.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ def _lib():
     lib = _build.load("dwconv3x3_gelu")
     fn = lib.dwconv3x3_gelu_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -71,15 +71,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
     B, H, W, C = x.shape
     if b.shape != (C,):
         raise ValueError(f"bias must be ({C},), got {tuple(b.shape)}")
-    # tap-major (9, C) weights: one tap of 8 channels is one vector load
-    w9 = _as_oihw(w, C).reshape(C, 9).t().contiguous()
+    # the kernel reads tap (i, j) of channel c at w[i*si + j*sj + c*sc],
+    # so either weight layout is taken in place, without a copy
+    w_sc, _, w_si, w_sj = _as_oihw(w, C).stride()
     b = b.contiguous()
     y = torch.empty_like(x)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 int(x.dtype == torch.bfloat16), B, H, W, C, stream)
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 int(x.dtype == torch.bfloat16), B, H, W, C, w_si, w_sj, w_sc,
+                 stream)
     if err != 0:
         raise RuntimeError(f"dwconv3x3_gelu kernel launch failed: CUDA "
                            f"error {err}")

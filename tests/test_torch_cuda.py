@@ -6,9 +6,11 @@ with one (the H100):
     python -m pytest tests/test_torch_cuda.py -q
 
 Covers what ``chip_smoke.py``'s main-path shapes do not: ragged N and M
-around the 64-wide tiles, M = 1, head-strided and misaligned inputs, the
-scalar K2 path (C not a multiple of 8), the launch counters and the
-wrappers' refusals.  Tolerances: a bf16 kernel output within
+around K1's 16-row warp tiles, 64-query blocks and 64-key chunks, M = 1,
+1 to 8 heads, head-strided and misaligned inputs, K2's halo tiles with H,
+W and C ragged around the tile and the 64-channel slice, both weight
+layouts, the scalar K2 path (C not a multiple of 8), the launch counters,
+the absence of per-call copies and the wrappers' refusals.  Tolerances: a bf16 kernel output within
 2^-8*|ref| + 1e-4 of the fp32 plain version on the same inputs (one bf16
 rounding plus summation order); fp32 within 1e-5.
 """
@@ -58,13 +60,43 @@ def test_attention_kernel_matches_plain(gen, dtype, N, M, H):
     _close(got, ref, dtype)
 
 
-def test_attention_kernel_misaligned_inputs(gen):
-    base = torch.randn(1, 77, 2, 65, generator=gen, device="cuda")
+def _attention_check(gen, B, N, M, H, dtype, scale=0.125):
+    """k and v as the two halves of one kv projection, as the MiT block
+    passes them."""
+    q = torch.randn(B, N, H, 64, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(B, M, 2, H, 64, generator=gen, device="cuda").to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    got = sra_attention(q, k, v, scale)
+    _close(got, sra_attention_reference(q.float(), k.float(), v.float(),
+                                        scale), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 16, 17, 255, 256, 257, 289])
+@pytest.mark.parametrize("N", [15, 17, 63, 65, 1155])
+def test_attention_kernel_ragged_tiles(gen, dtype, N, M):
+    _attention_check(gen, 2, N, M, (N + M) % 8 + 1, dtype)
+
+
+@pytest.mark.parametrize("H", range(1, 9))
+def test_attention_kernel_heads(gen, H):
+    _attention_check(gen, 2, 130, 289, H, torch.bfloat16)
+
+
+def test_attention_kernel_largest_stage(gen):
+    """The 135^2-token MiT-B5 stage at one crop: N = 18225, M = 256."""
+    _attention_check(gen, 1, 18225, 256, 1, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_misaligned_inputs(gen, dtype):
+    base = torch.randn(1, 77, 2, 65, generator=gen, device="cuda").to(dtype)
     q = base[..., 1:]  # head-dim stride 1, start off a 16-byte boundary
-    k = torch.randn(1, 9, 2, 64, generator=gen, device="cuda")
-    v = torch.randn(1, 9, 2, 64, generator=gen, device="cuda")
-    _close(sra_attention(q, k, v, 0.2), sra_attention_reference(q, k, v, 0.2),
-           torch.float32)
+    k = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
+    _close(sra_attention(q, k, v, 0.2),
+           sra_attention_reference(q.float(), k.float(), v.float(), 0.2),
+           dtype)
 
 
 def test_attention_kernel_refusals(gen):
@@ -92,6 +124,51 @@ def test_dwconv_kernel_matches_plain(gen, dtype, B, S, C):
     ref = dwconv3x3_gelu_reference(x.float(), w.float(), b.float())
     _close(got, ref, dtype)
     assert torch.equal(got, got_oihw)
+
+
+def _dwconv_check(gen, B, H, W, C, dtype):
+    """Both weight layouts: the HWIO (3,3,1,C) tensor and the OIHW
+    (C,1,3,3) one the MiT block holds, read in place."""
+    x = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(3, 3, 1, C, generator=gen, device="cuda")
+         ).to(dtype)
+    b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    got = dwconv3x3_gelu(x, w, b)
+    got_oihw = dwconv3x3_gelu(x, w.permute(3, 2, 0, 1).contiguous(), b)
+    _close(got, dwconv3x3_gelu_reference(x.float(), w.float(), b.float()),
+           dtype)
+    assert torch.equal(got, got_oihw)
+
+
+@pytest.mark.parametrize("H,W", [(1, 1), (7, 8), (8, 9), (9, 31), (31, 33),
+                                 (33, 7), (1, 135), (135, 1), (135, 135)])
+def test_dwconv_kernel_ragged_tiles(gen, H, W):
+    _dwconv_check(gen, 2, H, W, 64, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C", [8, 40, 72, 264])
+def test_dwconv_kernel_ragged_channel_slice(gen, C):
+    _dwconv_check(gen, 2, 17, 34, C, torch.bfloat16)
+
+
+def test_dwconv_kernel_launches_once_without_copies(gen):
+    """One call is one launch of the kernel and nothing else on the card:
+    no weight transpose, no contiguous copy."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(2, 34, 34, 128, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(128, 1, 3, 3, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(128, generator=gen, device="cuda").bfloat16()
+    dwconv3x3_gelu(x, w, b)  # build and load outside the window
+    torch.cuda.synchronize()
+    before = dwconv3x3_gelu.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dwconv3x3_gelu(x, w, b)
+        torch.cuda.synchronize()
+    assert dwconv3x3_gelu.launches == before + 1
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "dwconv3x3_gelu_kernel" in names[0], names
 
 
 def test_dwconv_kernel_refusals(gen):

@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. build: every ``refign_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at its main-path shapes (K1, K2: the four MiT-B5 stages; K3:
-   the three UAWarpC levels at the UDA geometry) plus ragged cases, with
+   the three UAWarpC levels at the UDA geometry, in the fused ReLU + L2
+   mode with bf16 output that the head launches and in the raw fp32
+   mode) plus ragged cases, with
    CUDA-event times (batches of back-to-back calls) beside the least time
    the card could take (bound), the share of that bound reached, and one
    PyTorch library call that computes the same function, where there is
@@ -86,8 +88,11 @@ E2E_MAX_REL = 5e-2
 E2E_MEAN_REL = 1e-2
 # small fp32 model, kernels against plain versions
 E2E_FP32_REL = 1e-4
-# K3 writes fp32 from bf16 or fp32 inputs: only summation order separates
-# it from its plain version; inputs are unit-norm features as in the head
+# K3 sums in fp32 from bf16 or fp32 inputs: only summation order separates
+# its raw volume and its fused fp32 output from their plain versions;
+# inputs are unit-norm features as in the head.  A fused bf16 output adds
+# one bf16 rounding: within BF16_REL*|ref| + CORR_ABS of the fp32 fused
+# plain version.
 CORR_ABS = 1e-5
 # align path, bf16 network, K3 against its plain version: the fp32
 # correlations round to bf16 at the same place in both, so they differ by
@@ -212,8 +217,9 @@ def phase_kernels():
     import torch.nn.functional as F
     from refign_tpu_torch.ops.attention import (sra_attention,
                                                 sra_attention_reference)
-    from refign_tpu_torch.ops.correlation import (local_correlation,
-                                                  local_correlation_reference)
+    from refign_tpu_torch.ops.correlation import (
+        local_correlation, local_correlation_reference,
+        local_correlation_relu_l2norm, local_correlation_relu_l2norm_reference)
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                              dwconv3x3_gelu_reference)
 
@@ -238,30 +244,43 @@ def phase_kernels():
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
-    def corr_bound(B, H, W, C, P, itemsize):
-        nbytes = 2 * B * H * W * C * itemsize + B * H * W * P * P * 4
+    def corr_bound(B, H, W, C, P, itemsize, out_itemsize):
+        nbytes = (2 * B * H * W * C * itemsize
+                  + B * H * W * P * P * out_itemsize)
         flops = 2.0 * B * H * W * P * P * C
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = flops / peak_flops(itemsize)
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
-    cases = [("sra_attention", n, (B_ROWS, N, M, H), "main", bf16)
+    # (name, launches per call of its path, shape, kind, input dtype, K3's
+    # output: None for the raw fp32 volume, else the fused mode's dtype)
+    cases = [("sra_attention", n, (B_ROWS, N, M, H), "main", bf16, None)
              for (n, N, M, H, _, _) in STAGES]
-    cases += [("sra_attention", 0, (2, 1000, 17, 1), "ragged", bf16),
-              ("sra_attention", 0, (2, 1000, 17, 1), "ragged", torch.float32)]
-    cases += [("dwconv3x3_gelu", n, (B_ROWS, S, C), "main", bf16)
+    cases += [("sra_attention", 0, (2, 1000, 17, 1), "ragged", bf16, None),
+              ("sra_attention", 0, (2, 1000, 17, 1), "ragged", torch.float32,
+               None)]
+    cases += [("dwconv3x3_gelu", n, (B_ROWS, S, C), "main", bf16, None)
               for (n, _, _, _, S, C) in STAGES]
-    cases += [("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", bf16),
-              ("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", torch.float32)]
-    cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "main", bf16)
+    cases += [("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", bf16, None),
+              ("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", torch.float32,
+               None)]
+    # K3: the head launches the fused mode with bf16 output ("main"); the
+    # raw mode at the same shapes, off the path, for the kernel alone
+    cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "main", bf16, bf16)
+              for lvl in CORR_LEVELS]
+    cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "raw", bf16, None)
               for lvl in CORR_LEVELS]
     cases += [("local_correlation", 0, (2, 33, 70, 40, 5), "ragged",
-               torch.float32),
+               torch.float32, None),
               ("local_correlation", 0, (1, 17, 45, 40, 9), "ragged",
+               torch.float32, None),
+              ("local_correlation", 0, (2, 33, 70, 40, 5), "ragged",
+               torch.float32, torch.float32),
+              ("local_correlation", 0, (1, 17, 45, 40, 9), "ragged", bf16,
                torch.float32)]
 
-    for name, n_launch, shape, kind, dtype in cases:
+    for name, n_launch, shape, kind, dtype, corr_out in cases:
         if name == "sra_attention":
             B, N, M, H = shape
             q, k, v = attention_case(gen, B, N, M, H, dtype)
@@ -277,12 +296,23 @@ def phase_kernels():
         elif name == "local_correlation":
             B, H, W, C, P = shape
             t, s = corr_case(gen, B, H, W, C, dtype)
-            ref = local_correlation_reference(t, s, P)
-            got = local_correlation(t, s, P)
-            kernel = lambda: local_correlation(t, s, P)  # noqa: E731
-            plain = lambda: local_correlation_reference(t, s, P)  # noqa
+            if corr_out is None:
+                ref = local_correlation_reference(t, s, P)
+                got = local_correlation(t, s, P)
+                kernel = lambda: local_correlation(t, s, P)  # noqa: E731
+                plain = lambda: local_correlation_reference(t, s, P)  # noqa
+                out_itemsize = 4
+            else:
+                ref = local_correlation_relu_l2norm_reference(t, s, P)
+                got = local_correlation_relu_l2norm(t, s, P, corr_out)
+                kernel = lambda: local_correlation_relu_l2norm(  # noqa: E731
+                    t, s, P, corr_out)
+                plain = lambda: local_correlation_relu_l2norm_reference(  # noqa
+                    t, s, P, corr_out)
+                out_itemsize = got.element_size()
             library = None  # no single PyTorch call computes it
-            bound, bound_by = corr_bound(B, H, W, C, P, t.element_size())
+            bound, bound_by = corr_bound(B, H, W, C, P, t.element_size(),
+                                         out_itemsize)
         else:
             B, S, C = shape
             x, w, b = dwconv_case(gen, B, S, C, dtype)
@@ -296,14 +326,19 @@ def phase_kernels():
             bound, bound_by = dw_bound(B, S, C, x.element_size())
         torch.cuda.synchronize()
         if name == "local_correlation":
-            if got.dtype != torch.float32:
-                raise AssertionError(f"{name}: output {got.dtype}, not fp32")
-            err = check_close(f"{name}{shape}", got, ref, 0.0, CORR_ABS)
+            want = torch.float32 if corr_out is None else corr_out
+            if got.dtype != want:
+                raise AssertionError(f"{name}: output {got.dtype}, not {want}")
+            err = check_close(f"{name}{shape} {kind}", got, ref,
+                              BF16_REL if want == bf16 else 0.0, CORR_ABS)
         elif dtype == bf16:
             err = check_close(f"{name}{shape}", got, ref, BF16_REL, BF16_ABS)
         else:
             err = check_close(f"{name}{shape} fp32", got, ref, 0.0, FP32_ABS)
-        row = dict(name=name, shape=list(shape), kind=kind,
+        mode = ("" if name != "local_correlation" else "raw fp32"
+                if corr_out is None else
+                "fused " + str(corr_out).replace("torch.", ""))
+        row = dict(name=name, shape=list(shape), kind=kind, mode=mode,
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
                    ms=time_ms(kernel), plain_ms=time_ms(plain),
@@ -313,18 +348,13 @@ def phase_kernels():
         rows.append(row)
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
-        log(f"  {name:17s} {kind:6s} {row['dtype']:8s} {str(shape):26s} "
+        log(f"  {name:17s} {kind:6s} {row['dtype']:8s} {mode:11s} "
+            f"{str(shape):26s} "
             f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
             f"{bound:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
             f"of it)  plain {row['plain_ms']:.4f} ms  library {lib}")
         del got, ref
     return rows
-
-
-def _plain_local_correlation_relu_l2norm(t, s, patch_size):
-    from refign_tpu_torch.ops import correlation
-    return correlation.relu_l2norm(
-        correlation.local_correlation_reference(t, s, patch_size))
 
 
 def plain_versions(enabled: bool):
@@ -339,7 +369,7 @@ def plain_versions(enabled: bool):
     mt.dwconv3x3_gelu = (dwconv.dwconv3x3_gelu_reference if enabled
                          else dwconv.dwconv3x3_gelu)
     uawarpc.local_correlation_relu_l2norm = (
-        _plain_local_correlation_relu_l2norm if enabled
+        correlation.local_correlation_relu_l2norm_reference if enabled
         else correlation.local_correlation_relu_l2norm)
 
 
@@ -540,7 +570,7 @@ def phase_align(card):
 KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 sra_attention", ("sra_attention_kernel",)),
     ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
-    ("K3 local_correlation", ("local_correlation_kernel",)),
+    ("K3 local_correlation", ("local_correlation",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
     # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
@@ -659,6 +689,12 @@ def main() -> int:
         "launches in one 1080x1920 HRDA* forward "
         f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
         f"1024^2 align and refine ({align_sec * 1e3:.1f} ms)")
+    raw = [r for r in rows if r["name"] == "local_correlation"
+           and r["kind"] == "raw"]
+    raw_ms, raw_bound = (sum(r[k] for r in raw) for k in ("ms", "bound_ms"))
+    log(f"  local_correlation raw fp32 mode (off the path) {raw_ms:.3f} ms "
+        f"per align, bound {raw_bound:.4f} ms "
+        f"({100 * raw_bound / raw_ms:.1f} % of it)")
     for k, lib in zip(kernels, ("SDPA", "cuDNN conv + gelu", None)):
         log(f"  {k['name']:17s} {k['ms']:.3f} ms per call of its path, "
             f"bound {k['bound_ms']:.4f} ms ({100 * k['bound_share']:.1f} % "

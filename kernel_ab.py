@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Time K1 and K2 of two checkouts with one timer on one NVIDIA card.
+"""Time K1, K2 and K3 of two checkouts with one timer on one NVIDIA card.
 
     python3 kernel_ab.py OTHER_CHECKOUT
 
-Builds ``refign_tpu_torch/csrc/{sra_attention,dwconv3x3_gelu}.cu`` of this
-checkout and of OTHER_CHECKOUT (for example a ``git archive`` of the parent
-commit) with the same nvcc flags, calls each kernel straight through its C
-entry point (no Python wrapper, so no host time) at the four MiT-B5 shapes
-of ``chip_smoke.py``, checks each output against the plain version within
-``chip_smoke.py``'s bf16 limit, and prints the times of the runs other,
-this, this, other, then the best of each checkout per shape.  Sources whose
-K2 entry point predates the weight strides get the tap-major (9, C) copy
-of the weights that their wrapper made.
+Builds ``refign_tpu_torch/csrc/{sra_attention,dwconv3x3_gelu,
+local_correlation}.cu`` of this checkout and of OTHER_CHECKOUT (for example
+a ``git archive`` of the parent commit) with the same nvcc flags, calls
+each kernel straight through its C entry point (no Python wrapper, so no
+host time) at the shapes of ``chip_smoke.py`` (K1, K2: the four MiT-B5
+stages; K3: the three UAWarpC levels, raw fp32 mode, with the source as
+the NHWC view of an NCHW tensor), checks each output against the plain
+version within ``chip_smoke.py``'s limit (bf16 for K1 and K2, 1e-5 for
+K3), and prints the times of the runs other, this, this, other, then the
+best of each checkout per shape.  K3's fused mode with bf16 output (what
+the UAWarpC head launches) is checked and timed in the same loop, for
+this checkout alone.  Sources whose K2 entry point predates
+the weight strides get the tap-major (9, C) copy of the weights that their
+wrapper made; sources whose K3 entry point predates the fused mode are
+called without its two mode arguments.
 """
 import ctypes
 import os
@@ -19,7 +25,10 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("sra_attention", "dwconv3x3_gelu")
+KERNELS = ("sra_attention", "dwconv3x3_gelu", "local_correlation")
+# a marker of each source's newer C signature: K2's weight strides, K3's
+# fused mode
+MARKERS = {"dwconv3x3_gelu": "w_si", "local_correlation": "out_bf16"}
 
 
 def build(root, tag):
@@ -40,8 +49,8 @@ def build(root, tag):
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
         with open(src) as f:
-            strided = "w_si" in f.read()
-        libs[k] = (ctypes.CDLL(out), strided)
+            newer = MARKERS.get(k, "") in f.read()
+        libs[k] = (ctypes.CDLL(out), newer)
     return libs
 
 
@@ -73,6 +82,20 @@ def k2_call(lib, strided, x, w, b, y, stream):
     return lambda: fn(*args)
 
 
+def k3_call(lib, newer, t, s, o, P, stream, fused=0):
+    """K3 on bf16 inputs: the raw fp32 volume, or with ``fused`` (newer
+    sources only) its relu_l2norm in bf16."""
+    fn = lib.local_correlation_forward
+    B, H, W, C = t.shape
+    mode = [ctypes.c_int] * 2 if newer else []
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 8 + mode + [ctypes.c_void_p])
+    args = (t.data_ptr(), s.data_ptr(), o.data_ptr(), 1, B, H, W, C, P,
+            *t.stride(), *s.stride(), *((fused, fused) if newer else ()),
+            stream)
+    return lambda: fn(*args)
+
+
 def main() -> int:
     import torch
     if len(sys.argv) != 2 or not torch.cuda.is_available():
@@ -81,6 +104,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import chip_smoke
     from refign_tpu_torch.ops.attention import sra_attention_reference
+    from refign_tpu_torch.ops.correlation import (
+        local_correlation_reference, local_correlation_relu_l2norm_reference)
     from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu_reference
 
     libs = {"this": build(HERE, "this"),
@@ -88,13 +113,14 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = 64 ** -0.5
-    cases = {"K1": [], "K2": []}
+    cases = {"K1": [], "K2": [], "K3": [], "K3 fused": []}
+    bf16_limit = (chip_smoke.BF16_REL, chip_smoke.BF16_ABS)
     for n, N, M, H, S, C in chip_smoke.STAGES:
         q, k, v = chip_smoke.attention_case(gen, chip_smoke.B_ROWS, N, M, H,
                                             torch.bfloat16)
         ref = sra_attention_reference(q.float(), k.float(), v.float(), scale)
         cases["K1"].append((n, f"B*H={chip_smoke.B_ROWS * H} N={N} M={M}",
-                            ref, torch.empty_like(q),
+                            ref, bf16_limit, torch.empty_like(q),
                             lambda t, o, q=q, k=k, v=v: k1_call(
                                 libs[t]["sra_attention"][0], q, k, v, o,
                                 scale, stream)))
@@ -102,42 +128,69 @@ def main() -> int:
                                          torch.bfloat16)
         ref = dwconv3x3_gelu_reference(x.float(), w.float(), b.float())
         cases["K2"].append((n, f"({chip_smoke.B_ROWS},{S},{S},{C})", ref,
-                            torch.empty_like(x),
+                            bf16_limit, torch.empty_like(x),
                             lambda t, y, x=x, w=w, b=b: k2_call(
                                 *libs[t]["dwconv3x3_gelu"], x, w, b, y,
                                 stream)))
+    P = chip_smoke.CORR_PATCH
+    for B, H, W, C in chip_smoke.CORR_LEVELS:
+        t, s = chip_smoke.corr_case(gen, B, H, W, C, torch.bfloat16)
+        ref = local_correlation_reference(t, s, P)
+        cases["K3"].append((1, f"({B},{H},{W},{C}) P={P}", ref,
+                            (0.0, chip_smoke.CORR_ABS), torch.empty_like(ref),
+                            lambda tag, o, t=t, s=s: k3_call(
+                                *libs[tag]["local_correlation"], t, s, o, P,
+                                stream)))
+        ref = local_correlation_relu_l2norm_reference(t, s, P)
+        cases["K3 fused"].append((
+            1, f"({B},{H},{W},{C}) P={P} bf16 out", ref,
+            (chip_smoke.BF16_REL, chip_smoke.CORR_ABS),
+            torch.empty(ref.shape, dtype=torch.bfloat16, device="cuda"),
+            lambda tag, o, t=t, s=s: k3_call(
+                libs[tag]["local_correlation"][0], True, t, s, o, P, stream,
+                fused=1) if tag == "this" else None))
+
+    def unit(name):
+        return "align" if name.startswith("K3") else "forward"
 
     best = {}
     for rnd, tag in enumerate(("other", "this", "this", "other")):
         for name, rows in cases.items():
             times = []
-            for n, label, ref, out, make in rows:
+            for n, label, ref, (rel, abs_), out, make in rows:
                 fn = make(tag, out)
+                if fn is None:  # a mode this checkout alone has
+                    continue
                 if fn() != 0:
                     raise RuntimeError(f"{name} ({tag}) launch failed")
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs()
-                bad = int((err > chip_smoke.BF16_REL * ref.abs()
-                           + chip_smoke.BF16_ABS).sum())
+                bad = int((err > rel * ref.abs() + abs_).sum())
                 if bad:
                     raise AssertionError(f"{name} {label} ({tag}): {bad} "
-                                         "elements beyond the bf16 limit")
+                                         f"elements beyond {rel:g}*|ref| + "
+                                         f"{abs_:g}")
                 t = chip_smoke.time_ms(fn)
                 times.append(t)
                 key = (name, label, tag)
                 best[key] = min(best.get(key, t), t)
+            if not times:
+                continue
             per_fwd = sum(r[0] * t for r, t in zip(rows, times))
             print(f"run {rnd} {tag:5s} {name}: "
                   f"{[round(t, 4) for t in times]} ms per launch, "
-                  f"{per_fwd:.3f} ms per forward", flush=True)
+                  f"{per_fwd:.3f} ms per {unit(name)}", flush=True)
     for name, rows in cases.items():
+        tags = [tag for tag in ("other", "this")
+                if (name, rows[0][1], tag) in best]
         for n, label, *_ in rows:
-            o, t = best[(name, label, "other")], best[(name, label, "this")]
-            print(f"{name} {label} x{n}: other {o:.4f} ms, this {t:.4f} ms "
-                  f"({o / t:.2f}x)")
-        for tag in ("other", "this"):
+            ms = [best[(name, label, tag)] for tag in tags]
+            ratio = f" ({ms[0] / ms[1]:.2f}x)" if len(ms) == 2 else ""
+            print(f"{name} {label} x{n}: " + ", ".join(
+                f"{tag} {t:.4f} ms" for tag, t in zip(tags, ms)) + ratio)
+        for tag in tags:
             tot = sum(r[0] * best[(name, r[1], tag)] for r in rows)
-            print(f"{name} best per forward, {tag}: {tot:.3f} ms")
+            print(f"{name} best per {unit(name)}, {tag}: {tot:.3f} ms")
     print(chip_smoke.card_line())
     return 0
 

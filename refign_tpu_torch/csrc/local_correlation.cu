@@ -4,46 +4,426 @@
 //
 // with zeros where (h+dy, w+dx) falls outside the image, P odd <= 9,
 // R = (P-1)/2.  Inputs are bf16 or fp32, read through their strides; the
-// sums are fp32 and the output is (B, H, W, P*P) fp32, contiguous.
+// sums are fp32.  Two modes, one launch each:
+//   raw    the volume, (B, H, W, P*P) fp32, contiguous;
+//   fused  relu_l2norm of each pixel's P*P sums, applied before anything
+//          leaves the block: v = max(v, 0) / sqrt(max(sum v^2, 1e-24))
+//          (F.normalize's eps on the norm; the division is a product with
+//          the pixel's reciprocal norm, within 2 ulp), written as fp32 or
+//          bf16.
 //
-// Replaces the TPU kernel refign_tpu/ops/correlation.py:
-// _local_correlation_pallas (Pallas body _corr_kernel).  That kernel walks
-// pre-stacked overlapping source strips kept whole in VMEM; here a block
-// stages a halo tile of the source in shared memory instead, so nothing is
+// Replaces the TPU kernel refign_tpu/ops/correlation.py:106,
+// _local_correlation_pallas (Pallas body _corr_kernel), and in the fused
+// mode also the ReLU + L2 that local_correlation_relu_l2norm
+// (refign_tpu/ops/correlation.py:174-184) runs after it.  That kernel walks
+// pre-stacked overlapping source strips kept whole in VMEM on the VPU; here
+// a block stages a halo tile of the source in shared memory, so nothing is
 // padded or copied in device memory.
 //
-// What bounds it on an H100: operations.  It does 2*P*P*C flops per pixel
-// on the CUDA cores (fp32, 67 TFLOP/s) against 2*C*itemsize + 4*P*P bytes
-// (3.35 TB/s): at P = 9 in bf16 that is 25 flops per byte at C = 128 and
-// 31 at C = 256, above the card's 20.  The fp32 rate is within reach only
-// if each shared-memory load feeds several FMAs.  Design:
+// What bounds it on an H100: bytes.  Per pixel it reads 2*C inputs and
+// writes P*P outputs (4 bytes raw, 2 in the fused bf16 mode) for 2*P*P*C
+// useful flops: at P = 9 in bf16 ~25-31 flops per byte, far under the
+// card's ridge at the bf16 tensor-core rate (~295).  On the CUDA cores the
+// same flops were the limit (the previous body, 7-95x off the bytes bound).
+// Design of the bf16 body:
 //
-// * A block owns a tile of TH x TW = 8 x 32 target pixels of one image and
-//   runs P warps, one per row displacement dy.  Lane (y, xg) of warp dy owns
-//   NP = 8 neighbouring pixels of row y and their P column displacements:
-//   8*P sums in registers.  Per channel it loads its 8 target values and
-//   the 8+P-1 source values of row y+dy that those pixels see (float4
-//   loads), so each source value feeds up to P FMAs.
-// * Channels are staged CC = 8 at a time: the target tile and the source
-//   halo ((TH+2R) x (TW+2R)) are converted to fp32 in shared memory, laid
-//   out [c][row][col] with row strides chosen so that the float4 loads of a
-//   quarter-warp hit distinct banks.  A staging thread owns whole pixels
-//   and loads their 8 channels at once (one 16-byte load for NHWC bf16), so
-//   the address arithmetic is paid once per pixel, not per value.
-//   Out-of-image pixels and channels past C stage as zeros, which gives the
-//   zero padding.
-// * The sums leave through shared memory (the input buffers are reused), so
-//   that each output row segment of 32 pixels x P*P floats is written with
-//   coalesced stores.
+// * The volume is a banded batched product on the tensor cores (mma.sync
+//   m16n8k16, bf16 operands from ldmatrix, fp32 accumulators).  Target row
+//   y with displacement dy and row y+1 with dy-1 read the same source row,
+//   so the mma's 16 rows are 8 pixels of row y over 8 pixels of row y+1,
+//   and one product with the 16-column source window of that row (x0-4 ..
+//   x0+12: two n-tiles) serves both: pixel g, window column n is dx =
+//   n - g - 4.  The P + 1 source rows that such a 2 x 8 tile sees cost
+//   2(P+1) products and (P+1) x 8 accumulators a lane (80 at P = 9).  The
+//   band's useful share is 81/160 at P = 9 (a 16-pixel
+//   row segment against a 24-wide window would keep 9/24): 10.7 GFLOP of
+//   tensor work at the largest level, ~0.02 ms at the mma.sync rate, under
+//   the level's 0.065 ms bytes bound.  Products of bf16 values are exact in
+//   fp32, so only the order of the sums differs from the plain version.
+// * What limits a tile is the traffic from L2: a block of TH x 16 target
+//   pixels stages TH + P - 1 source rows of 24 columns (a 48-byte run per
+//   channel that touches three 32-byte sectors), so taller tiles read each
+//   source byte fewer times (3x for 8 rows, 4.5x for 4, 9x for 1).  A block
+//   of 8 rows runs 16 warps: each 2 x 8 tile's P + 1 source rows are split
+//   over 2 warps (40 accumulators each), which fits 128 registers without a
+//   spill; 80 accumulators a warp spilled at that cap, and fewer rows a
+//   block cost more than the second block per SM gained (all timed on an
+//   H100).  The 32^2 level (B = 4) would give 32 such blocks for 132 SMs,
+//   so where a map gives fewer blocks than SMs the launcher takes 2-row
+//   tiles (128 blocks of 4 warps there).  A persistent grid (a block a SM
+//   walking its tiles, the next tile's chunks loading during this one's
+//   epilogue) timed 18 % slower than one block a tile.
+// * Channels advance KC = 32 at a time through a 3-stage cp.async ring, so
+//   the next chunks load while this one is multiplied (4 stages, or 64
+//   channels a chunk, timed no faster).  Channels past C and
+//   pixels outside the image are zero-filled (src-size 0), which gives both
+//   the K padding and the zero padding.
+// * Each operand is staged in the layout its main-path input arrives in,
+//   with no copy in device memory.  The target (the head's normalised NHWC
+//   features, channels contiguous) stages as [pixel][channel] with 16-byte
+//   cp.async and is read with ldmatrix; rows are padded to 80 bytes so the
+//   8 rows of an 8x8 matrix hit distinct banks.  The warped source is the
+//   NHWC view of grid_sample's NCHW output (channel stride H*W): it stages
+//   as [row][channel][column] with 8-byte cp.async (8 lanes per channel
+//   row, coalesced along W, one running pointer per thread) and is read
+//   with ldmatrix.trans; its 48-byte channel rows already fall in distinct
+//   banks.  Other strides or alignments of either stage element by element
+//   into the same layouts (tests only).
+// * Epilogue: each lane scatters its band into shared memory (the ring is
+//   reused) and, in the fused mode, sums the squares of its ReLU'd values
+//   per pixel, reduced over the quad with shuffles; then each row
+//   segment's 16 x P*P outputs leave with 16-byte stores (8-byte in bf16).
 //
-// Later work, not here: tensor cores (the volume is a banded batched
-// product), double-buffered cp.async/TMA staging, and a fused ReLU + L2
-// epilogue.
+// fp32 inputs (the tests and the small fp32 network) keep a CUDA-core body:
+// TF32 tensor cores would break the 1e-5 fp32 check.  A block owns
+// an 8 x 32 target tile and runs P warps, one per dy; lane (y, xg) of warp
+// dy owns 8 neighbouring pixels and their P column displacements (8*P sums
+// in registers); channels are staged 8 at a time as fp32 in shared memory
+// with the source halo.  It shares the writer.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// -------------------------------------------------------------- the writer
+
+// Write a block's sums, staged in shared memory as so[r * RS + x * PP + k]
+// for its TH x TW target pixels, to out (B, H, W, PP) contiguous; with
+// `fused`, as max(v, 0) * inv[r * TW + x] (inv: reciprocal norms).  A row
+// segment is contiguous in out: 16-byte (fp32) or 8-byte (bf16) stores of 4
+// values where RS and the segment's start allow, else one value a store.
+template <int PP, int TH, int TW, int RS>
+__device__ __forceinline__ void write_out(const float* so, const float* inv, void* out,
+                                          int fused, int out_bf16, int b, int y0, int x0,
+                                          int H, int W) {
+  const int nt = blockDim.x;
+  const int n = min(TW, W - x0) * PP;
+  for (int r = 0; r < TH; ++r) {
+    const int gy = y0 + r;
+    if (gy >= H) break;
+    const long long o = (((long long)b * H + gy) * W + x0) * PP;
+    const float* srow = so + r * RS;
+    const float* irow = inv + r * TW;
+    int done = 0;
+    if (RS % 4 == 0 && o % 4 == 0) {
+      done = n / 4 * 4;
+      for (int i = 4 * threadIdx.x; i < done; i += 4 * nt) {
+        float4 v = *reinterpret_cast<const float4*>(srow + i);
+        if (fused) {
+          v.x = fmaxf(v.x, 0.f) * irow[i / PP];
+          v.y = fmaxf(v.y, 0.f) * irow[(i + 1) / PP];
+          v.z = fmaxf(v.z, 0.f) * irow[(i + 2) / PP];
+          v.w = fmaxf(v.w, 0.f) * irow[(i + 3) / PP];
+        }
+        if (out_bf16) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+          uint2 u;
+          u.x = *reinterpret_cast<const uint32_t*>(&lo);
+          u.y = *reinterpret_cast<const uint32_t*>(&hi);
+          *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + o + i) = u;
+        } else {
+          *reinterpret_cast<float4*>(static_cast<float*>(out) + o + i) = v;
+        }
+      }
+    }
+    for (int i = done + threadIdx.x; i < n; i += nt) {
+      float v = srow[i];
+      if (fused) v = fmaxf(v, 0.f) * irow[i / PP];
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(out)[o + i] = __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(out)[o + i] = v;
+    }
+  }
+}
+
+__device__ __forceinline__ float inv_norm(float ss) { return 1.f / sqrtf(fmaxf(ss, 1e-24f)); }
+
+// ------------------------------------------------- bf16: the tensor cores
+
+namespace tcore {
+
+constexpr int SEG = 8;               // pixels of one target row in a warp tile
+constexpr int HALO = 4;              // window origin x - HALO, for every P
+constexpr int WIN = SEG + 2 * HALO;  // a warp's window: two n-tiles of 8
+constexpr int TWB = 2 * SEG;         // target columns per block
+constexpr int SWIN = TWB + 2 * HALO;  // staged source columns
+constexpr int KC = 32;               // channels per staged chunk: two k-steps
+constexpr int PSTR = KC + 8;         // [pixel][channel] row: 80 bytes
+constexpr int NSTAGE = 3;            // cp.async ring depth
+
+static_assert(WIN == 16 && SWIN % 4 == 0 && KC % 16 == 0, "two n-tiles, whole k-steps");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b, m16n8k16, bf16 in, fp32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Tile geometry.  TH (even) target rows x TWB columns per block; warp w
+// takes source rows [NK * (w % KS), +NK) of the P + 1 that its 2 x SEG
+// tile (row pair (w / KS) / 2, segment (w / KS) % 2) sees.
+template <int P, int TH, int KS>
+struct Geo {
+  static constexpr int R = (P - 1) / 2;
+  static constexpr int PP = P * P;
+  static constexpr int NK = (P + 1) / KS;
+  static constexpr int NT = 32 * TH * KS;
+  static constexpr int NPIX = TH * TWB;
+  static constexpr int SROWS = TH + P - 1;               // staged source rows
+  static constexpr int T_ELEMS = NPIX * PSTR;             // [pixel][channel]
+  static constexpr int S_ROW = KC * SWIN;                 // [channel][column]
+  static constexpr int S_ELEMS = SROWS * S_ROW;
+  static constexpr int STAGE_BYTES = 2 * (T_ELEMS + S_ELEMS);
+  static constexpr int OUT_RS = TWB * PP + 4;  // output staging row, in floats
+  static constexpr int OUT_FLOATS = TH * OUT_RS + (KS + 1) * NPIX;  // + partials, norms
+  static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+  static constexpr int SMEM_BYTES =
+      RING_BYTES > 4 * OUT_FLOATS ? RING_BYTES : 4 * OUT_FLOATS;
+  static_assert(TH % 2 == 0 && (P + 1) % KS == 0, "row pairs, whole source-row splits");
+  static_assert(STAGE_BYTES % 16 == 0 && OUT_RS % 4 == 0, "16-byte aligned");
+};
+
+// Stage channels [c0, c0 + KC) of the target tile (rows y0.., columns x0..)
+// as [pixel][channel]; vec: 16-byte cp.async (channels contiguous, C % 8 ==
+// 0, aligned), else element by element.
+template <int TH, int NT>
+__device__ __forceinline__ void stage_target(__nv_bfloat16* dst, const __nv_bfloat16* t,
+                                             int y0, int x0, int c0, int H, int W, int C,
+                                             long long th, long long tw, long long tc,
+                                             bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < TH * TWB * (KC / 8); i += NT) {
+      const int p = i / (KC / 8), g = i % (KC / 8);
+      const int gy = y0 + p / TWB, gx = x0 + p % TWB, c = c0 + 8 * g;
+      const bool ok = gy < H && gx < W && c < C;
+      cp_async16(dst + p * PSTR + 8 * g, ok ? t + gy * th + gx * tw + c : t, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TH * TWB * KC; i += NT) {
+      const int p = i / KC, c = i % KC;
+      const int gy = y0 + p / TWB, gx = x0 + p % TWB;
+      const bool ok = gy < H && gx < W && c0 + c < C;
+      dst[p * PSTR + c] = ok ? t[gy * th + gx * tw + (c0 + c) * tc] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Stage channels [c0, c0 + KC) of the source halo (rows y0 - R.., columns
+// x0 - HALO..) as [row][channel][column].  vec: 8-byte cp.async of 4
+// pixels along W (stride 1, W % 4 == 0, aligned), so a group lies wholly
+// inside or outside the image.  8 lanes take one channel row (SWIN / 4 of
+// them busy), the threads cover NT / 8 channel rows a pass, and each
+// thread walks its channel down the staged rows with one running pointer.
+// Otherwise element by element.
+template <int P, int TH, int KS>
+__device__ __forceinline__ void stage_source(__nv_bfloat16* dst, const __nv_bfloat16* s,
+                                             int y0, int x0, int c0, int H, int W, int C,
+                                             long long sh, long long sw, long long sc,
+                                             bool vec) {
+  using G = Geo<P, TH, KS>;
+  const int gy0 = y0 - G::R, gx0 = x0 - HALO;
+  if (vec) {
+    constexpr int CPT = G::NT / 8 < KC ? G::NT / 8 : KC;  // channels a pass covers
+    constexpr int RPP = G::NT / 8 / CPT;                  // source rows a pass covers
+    static_assert(KC % CPT == 0 && G::NT / 8 % CPT == 0, "whole passes");
+    const int g = threadIdx.x % 8;
+    const int gx = gx0 + 4 * g;
+    const int r0 = threadIdx.x / 8 / CPT;
+    const bool col_ok = g < SWIN / 4 && gx >= 0 && gx < W;
+    if (g < SWIN / 4) {
+#pragma unroll
+      for (int j = 0; j < KC / CPT; ++j) {
+        const int c = threadIdx.x / 8 % CPT + j * CPT;
+        const bool c_ok = col_ok && c0 + c < C;
+        const __nv_bfloat16* p = s + (gy0 + r0) * sh + gx + (c0 + c) * sc;
+        __nv_bfloat16* d = dst + (r0 * KC + c) * SWIN + 4 * g;
+#pragma unroll 1
+        for (int row = 0; row < G::SROWS; row += RPP) {
+          if (row + r0 < G::SROWS) {
+            const int gy = gy0 + r0 + row;
+            const bool ok = c_ok && gy >= 0 && gy < H;
+            cp_async8(d, ok ? p : s, ok);
+          }
+          p += RPP * sh;
+          d += RPP * KC * SWIN;
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < G::SROWS * KC * SWIN; i += G::NT) {
+      const int row = i / (KC * SWIN), rem = i % (KC * SWIN);
+      const int c = rem / SWIN, x = rem % SWIN;
+      const int gy = gy0 + row, gx = gx0 + x;
+      const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c0 + c < C;
+      dst[(row * KC + c) * SWIN + x] =
+          ok ? s[gy * sh + gx * sw + (c0 + c) * sc] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int P, int TH, int KS, int MINB>
+__global__ void __launch_bounds__(32 * TH * KS, MINB)
+local_correlation_tc_kernel(const __nv_bfloat16* __restrict__ t,
+                            const __nv_bfloat16* __restrict__ s, void* __restrict__ out,
+                            int H, int W, int C, long long tb, long long th, long long tw,
+                            long long tc, long long sb, long long sh, long long sw,
+                            long long sc, int t_vec, int s_vec, int fused, int out_bf16) {
+  using G = Geo<P, TH, KS>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * TH;
+  const int x0 = blockIdx.x * TWB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kpart = warp % KS;          // which share of the source rows
+  const int seg = warp / KS % 2;        // columns [8 seg, 8 seg + 8) of the block
+  const int pair = warp / KS / 2;       // target rows 2 pair, 2 pair + 1
+  const int k0 = kpart * G::NK;         // first source row, relative to row 2 pair - R
+  const __nv_bfloat16* tb_ = t + b * tb;
+  const __nv_bfloat16* sb_ = s + b * sb;
+  const int nchunks = (C + KC - 1) / KC;
+
+  auto t_buf = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + st * G::STAGE_BYTES);
+  };
+  auto s_buf = [&](int st) { return t_buf(st) + G::T_ELEMS; };
+  auto load = [&](int ci) {
+    if (ci < nchunks) {
+      const int st = ci % NSTAGE;
+      stage_target<TH, G::NT>(t_buf(st), tb_, y0, x0, ci * KC, H, W, C, th, tw, tc, t_vec);
+      stage_source<P, TH, KS>(s_buf(st), sb_, y0, x0, ci * KC, H, W, C, sh, sw, sc, s_vec);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // ldmatrix lane offsets (elements).  A, 16 rows x 16 channels, rows 0-7
+  // = pixels of target row 2 pair, rows 8-15 = the same pixels of the row
+  // below: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k
+  // 8-15), (rows 8-15, k 8-15) are a0..a3.  B, the 16-column window of one
+  // source row, transposed from [channel][column]: (nt0, k 0-7), (nt0, k
+  // 8-15), (nt1, k 0-7), (nt1, k 8-15).
+  const int a_off = ((2 * pair + (lane >> 3) % 2) * TWB + SEG * seg + lane % 8) * PSTR +
+                    lane / 16 * 8;
+  const int b_off = (lane / 8 % 2 * 8 + lane % 8) * SWIN + lane / 16 * 8 + SEG * seg;
+  constexpr int KSTEP = 16 * SWIN;  // 16 channels further
+
+  float acc[G::NK][2][4];
+#pragma unroll
+  for (int k = 0; k < G::NK; ++k)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][j][e] = 0.f;
+
+#pragma unroll
+  for (int ci = 0; ci < NSTAGE - 1; ++ci) load(ci);
+
+  for (int ci = 0; ci < nchunks; ++ci) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NSTAGE - 2) : "memory");
+    __syncthreads();  // chunk ci is in; chunk ci - 1's buffer is free
+    load(ci + NSTAGE - 1);
+    const __nv_bfloat16* ta = t_buf(ci % NSTAGE) + a_off;
+    const __nv_bfloat16* sr = s_buf(ci % NSTAGE) + (2 * pair + k0) * G::S_ROW + b_off;
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, ta + ks * 16);
+#pragma unroll
+      for (int k = 0; k < G::NK; ++k) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, sr + k * G::S_ROW + ks * KSTEP);
+        mma(acc[k][0], a, bf[0], bf[1]);
+        mma(acc[k][1], a, bf[2], bf[3]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // the ring is free: it becomes the output staging
+
+  // Keep the band.  Accumulator e of n-tile j of source row k holds pixel
+  // g of target row 2 pair + e / 2, window column n = 8 j + 2 q + e % 2:
+  // displacement dy index k0 + k - e / 2, dx index n - g - HALO + R.
+  float* so = reinterpret_cast<float*>(smem);
+  float* part = so + TH * G::OUT_RS;     // [KS][NPIX] sums of squares
+  float* inv = part + KS * G::NPIX;      // [NPIX] reciprocal norms
+  const int g = lane / 4, q = lane % 4;
+  float ss[2] = {0.f, 0.f};
+#pragma unroll
+  for (int k = 0; k < G::NK; ++k)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2;
+        const int dyi = k0 + k - h;
+        const int dxi = 8 * j + 2 * q + e % 2 - g - HALO + G::R;
+        if (dyi >= 0 && dyi < P && dxi >= 0 && dxi < P) {
+          const float v = acc[k][j][e];
+          so[(2 * pair + h) * G::OUT_RS + (SEG * seg + g) * G::PP + dyi * P + dxi] = v;
+          const float r = fmaxf(v, 0.f);
+          ss[h] = fmaf(r, r, ss[h]);
+        }
+      }
+  if (fused) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 1);
+      ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 2);
+      if (q == 0) part[kpart * G::NPIX + (2 * pair + h) * TWB + SEG * seg + g] = ss[h];
+    }
+  }
+  __syncthreads();
+  if (fused) {
+    for (int p = threadIdx.x; p < G::NPIX; p += G::NT) {
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < KS; ++k) sum += part[k * G::NPIX + p];
+      inv[p] = inv_norm(sum);
+    }
+    __syncthreads();
+  }
+  write_out<G::PP, TH, TWB, G::OUT_RS>(so, inv, out, fused, out_bf16, b, y0, x0, H, W);
+}
+
+}  // namespace tcore
+
+// --------------------------------------------------- fp32: the CUDA cores
+
+namespace fp {
 
 constexpr int TH = 8;        // target rows per block
 constexpr int TW = 32;       // target columns per block
@@ -67,20 +447,17 @@ struct Geo {
   static constexpr int SPLANE = (SH * SWS + 31) / 32 * 32 + 4;
   static constexpr int NS = (NP + P - 1 + 3) / 4 * 4;  // source values, float4-rounded
   // output staging: a row of TW pixels x PP floats, plus one float so that
-  // lanes of different rows land on different banks
+  // lanes of different rows land on different banks; then TH * TW norms
   static constexpr int OUT_RS = TW * PP + 1;
   static constexpr int IN_FLOATS = CC * (TPLANE + SPLANE);
-  static constexpr int OUT_FLOATS = TH * OUT_RS;
+  static constexpr int OUT_FLOATS = TH * OUT_RS + TH * TW;
   static constexpr int SMEM_BYTES =
       4 * (IN_FLOATS > OUT_FLOATS ? IN_FLOATS : OUT_FLOATS);
   static constexpr int THREADS = 32 * P;
   static_assert(SWS >= SW && SWS >= (XG - 1) * NP + NS, "source rows too short");
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// 8 consecutive values, one 16-byte load for bf16 (two for fp32)
+// 8 consecutive values
 __device__ __forceinline__ void load8(const float* p, float (&v)[CC]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
   const float4 b = reinterpret_cast<const float4*>(p)[1];
@@ -88,29 +465,18 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[CC]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[CC]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
 static_assert(CC == 8, "load8 stages one chunk");
 
 // Stage a ROWS x COLS box of one image, channels c0 .. c0+CC-1, into
-// dst[c * plane + r * row_stride + col] as fp32; zero outside the image and
-// past C.  Each thread owns whole pixels of the box (consecutive threads,
+// dst[c * plane + r * row_stride + col]; zero outside the image and past C.
+// Each thread owns whole pixels of the box (consecutive threads,
 // consecutive columns) and loads the chunk's CC channels of each: one
 // address per pixel, CC loads in flight.  ``vec8`` (channels contiguous,
-// C % 8 == 0, 16-byte aligned) makes them one vector load; for the NHWC
-// view of an NCHW tensor the lanes' scalar loads are coalesced along W.
-template <typename T, int NT, int ROWS, int COLS>
+// C % 8 == 0, 16-byte aligned) makes them vector loads; for the NHWC view
+// of an NCHW tensor the lanes' scalar loads are coalesced along W.
+template <int NT, int ROWS, int COLS>
 __device__ __forceinline__ void stage(float* dst, int plane, int row_stride,
-                                      const T* src, int gy0, int gx0, int c0,
+                                      const float* src, int gy0, int gx0, int c0,
                                       int H, int W, int C, long long sh,
                                       long long sw, long long sc, bool vec8) {
   for (int p = threadIdx.x; p < ROWS * COLS; p += NT) {
@@ -118,12 +484,12 @@ __device__ __forceinline__ void stage(float* dst, int plane, int row_stride,
     const int gy = gy0 + r, gx = gx0 + x;
     float v[CC];
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const T* q = src + gy * sh + gx * sw + c0 * sc;
+      const float* q = src + gy * sh + gx * sw + c0 * sc;
       if (vec8) {
         load8(q, v);
       } else {
 #pragma unroll
-        for (int c = 0; c < CC; ++c) v[c] = c0 + c < C ? to_f32(q[c * sc]) : 0.f;
+        for (int c = 0; c < CC; ++c) v[c] = c0 + c < C ? q[c * sc] : 0.f;
       }
     } else {
 #pragma unroll
@@ -135,13 +501,14 @@ __device__ __forceinline__ void stage(float* dst, int plane, int row_stride,
   }
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(32 * P, 2)
-local_correlation_kernel(const T* __restrict__ t, const T* __restrict__ s,
-                         float* __restrict__ out, int H, int W, int C,
+// one block per SM at P = 9 leaves the 72 sums room without a spill
+template <int P>
+__global__ void __launch_bounds__(32 * P, P == 9 ? 1 : 2)
+local_correlation_kernel(const float* __restrict__ t, const float* __restrict__ s,
+                         void* __restrict__ out, int H, int W, int C,
                          long long tb, long long th, long long tw, long long tc,
                          long long sb, long long sh, long long sw, long long sc,
-                         int t_vec8, int s_vec8) {
+                         int t_vec8, int s_vec8, int fused, int out_bf16) {
   using G = Geo<P>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -155,8 +522,8 @@ local_correlation_kernel(const T* __restrict__ t, const T* __restrict__ s,
   const int lane = threadIdx.x % 32;
   const int ty = lane / XG;
   const int xg = lane % XG;
-  const T* tb_ = t + b * tb;
-  const T* sb_ = s + b * sb;
+  const float* tb_ = t + b * tb;
+  const float* sb_ = s + b * sb;
 
   float acc[NP][P];
 #pragma unroll
@@ -165,10 +532,9 @@ local_correlation_kernel(const T* __restrict__ t, const T* __restrict__ s,
     for (int d = 0; d < P; ++d) acc[j][d] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += CC) {
-    stage<T, G::THREADS, TH, TW>(st, TPLANE, TWS, tb_, y0, x0, c0, H, W, C, th, tw,
-                                 tc, t_vec8);
-    stage<T, G::THREADS, G::SH, G::SW>(ss, G::SPLANE, SWS, sb_, y0 - G::R, x0 - G::R,
-                                       c0, H, W, C, sh, sw, sc, s_vec8);
+    stage<G::THREADS, TH, TW>(st, TPLANE, TWS, tb_, y0, x0, c0, H, W, C, th, tw, tc, t_vec8);
+    stage<G::THREADS, G::SH, G::SW>(ss, G::SPLANE, SWS, sb_, y0 - G::R, x0 - G::R, c0, H, W,
+                                    C, sh, sw, sc, s_vec8);
     __syncthreads();
 #pragma unroll 2
     for (int c = 0; c < CC; ++c) {
@@ -195,75 +561,132 @@ local_correlation_kernel(const T* __restrict__ t, const T* __restrict__ s,
     __syncthreads();
   }
 
-  // sums -> shared memory [row][col * PP + k] -> coalesced row segments
-  float* so = smem;
+  float* so = smem;  // [row][col * PP + k], then the reciprocal norms
+  float* inv = so + TH * G::OUT_RS;
 #pragma unroll
   for (int j = 0; j < NP; ++j)
 #pragma unroll
     for (int d = 0; d < P; ++d)
       so[ty * G::OUT_RS + (xg * NP + j) * G::PP + dyi * P + d] = acc[j][d];
   __syncthreads();
-  const int ncols = min(TW, W - x0);
-  for (int r = 0; r < TH; ++r) {
-    const int gy = y0 + r;
-    if (gy >= H) break;
-    float* orow = out + (((long long)b * H + gy) * W + x0) * G::PP;
-    for (int i = threadIdx.x; i < ncols * G::PP; i += blockDim.x)
-      orow[i] = so[r * G::OUT_RS + i];
+  if (fused) {
+    for (int p = threadIdx.x; p < TH * TW; p += G::THREADS) {
+      const float* v = so + (p / TW) * G::OUT_RS + (p % TW) * G::PP;
+      float sum = 0.f;
+#pragma unroll 9
+      for (int k = 0; k < G::PP; ++k) {
+        const float r = fmaxf(v[k], 0.f);
+        sum = fmaf(r, r, sum);
+      }
+      inv[p] = inv_norm(sum);
+    }
+    __syncthreads();
   }
+  write_out<G::PP, TH, TW, G::OUT_RS>(so, inv, out, fused, out_bf16, b, y0, x0, H, W);
 }
 
-// whole 8-channel chunks of every pixel are 16-byte aligned vectors
-bool vec8_ok(const void* p, const long long* st, int C, int itemsize) {
-  return st[3] == 1 && C % CC == 0 && (uintptr_t)p % 16 == 0 &&
+}  // namespace fp
+
+// ---------------------------------------------------------------- launch
+
+// channels contiguous, whole 8-channel groups 16-byte aligned vectors
+bool vec_channels(const void* p, const long long* st, int C, int itemsize) {
+  return st[3] == 1 && C % 8 == 0 && (uintptr_t)p % 16 == 0 &&
          (st[0] * itemsize) % 16 == 0 && (st[1] * itemsize) % 16 == 0 &&
          (st[2] * itemsize) % 16 == 0;
 }
 
-template <typename T, int P>
-int launch_p(const void* t, const void* s, float* out, int B, int H, int W, int C,
-             const long long* ts, const long long* ss, cudaStream_t stream) {
-  using G = Geo<P>;
-  auto kern = local_correlation_kernel<T, P>;
+// bf16 with W contiguous: 4-pixel groups are 8-byte aligned and never
+// straddle the image's edge
+bool vec_width4(const void* p, const long long* st, int W) {
+  return st[2] == 1 && W % 4 == 0 && (uintptr_t)p % 8 == 0 && st[0] % 4 == 0 &&
+         st[1] % 4 == 0 && st[3] % 4 == 0;
+}
+
+struct Args {
+  const void* t;
+  const void* s;
+  void* out;
+  int B, H, W, C;
+  const long long* ts;
+  const long long* ss;
+  int fused, out_bf16;
+  cudaStream_t stream;
+};
+
+template <int P, int TH, int KS, int MINB>
+int launch_tc(const Args& a) {
+  using G = tcore::Geo<P, TH, KS>;
+  auto kern = tcore::local_correlation_tc_kernel<P, TH, KS, MINB>;
   // the attribute belongs to the current device: set it before every
   // launch so a process that launches on several cards gets it on each
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kern<<<grid, G::THREADS, G::SMEM_BYTES, stream>>>(
-      static_cast<const T*>(t), static_cast<const T*>(s), out, H, W, C, ts[0], ts[1],
-      ts[2], ts[3], ss[0], ss[1], ss[2], ss[3], (int)vec8_ok(t, ts, C, sizeof(T)),
-      (int)vec8_ok(s, ss, C, sizeof(T)));
+  const dim3 grid((a.W + tcore::TWB - 1) / tcore::TWB, (a.H + TH - 1) / TH, a.B);
+  kern<<<grid, G::NT, G::SMEM_BYTES, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.t), static_cast<const __nv_bfloat16*>(a.s), a.out,
+      a.H, a.W, a.C, a.ts[0], a.ts[1], a.ts[2], a.ts[3], a.ss[0], a.ss[1], a.ss[2], a.ss[3],
+      (int)vec_channels(a.t, a.ts, a.C, 2), (int)vec_width4(a.s, a.ss, a.W), a.fused,
+      a.out_bf16);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* t, const void* s, float* out, int B, int H, int W, int C,
-           int P, const long long* ts, const long long* ss, cudaStream_t stream) {
-  switch (P) {
-    case 1: return launch_p<T, 1>(t, s, out, B, H, W, C, ts, ss, stream);
-    case 3: return launch_p<T, 3>(t, s, out, B, H, W, C, ts, ss, stream);
-    case 5: return launch_p<T, 5>(t, s, out, B, H, W, C, ts, ss, stream);
-    case 7: return launch_p<T, 7>(t, s, out, B, H, W, C, ts, ss, stream);
-    case 9: return launch_p<T, 9>(t, s, out, B, H, W, C, ts, ss, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int P>
+int launch_bf16(const Args& a) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // 8-row tiles where they give every SM a block, else 2-row tiles; each
+  // pair's source rows split over 2 warps
+  const long long blocks8 =
+      (long long)a.B * ((a.H + 7) / 8) * ((a.W + tcore::TWB - 1) / tcore::TWB);
+  return blocks8 < sms ? launch_tc<P, 2, 2, 2>(a) : launch_tc<P, 8, 2, 1>(a);
+}
+
+template <int P>
+int launch_fp32(const Args& a) {
+  using G = fp::Geo<P>;
+  auto kern = fp::local_correlation_kernel<P>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.W + fp::TW - 1) / fp::TW, (a.H + fp::TH - 1) / fp::TH, a.B);
+  kern<<<grid, G::THREADS, G::SMEM_BYTES, a.stream>>>(
+      static_cast<const float*>(a.t), static_cast<const float*>(a.s), a.out, a.H, a.W, a.C,
+      a.ts[0], a.ts[1], a.ts[2], a.ts[3], a.ss[0], a.ss[1], a.ss[2], a.ss[3],
+      (int)vec_channels(a.t, a.ts, a.C, 4), (int)vec_channels(a.s, a.ss, a.C, 4), a.fused,
+      a.out_bf16);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_p(const Args& a, int is_bf16) {
+  return is_bf16 ? launch_bf16<P>(a) : launch_fp32<P>(a);
 }
 
 }  // namespace
 
 // t, s (B,H,W,C) of one type (bf16 when is_bf16, else fp32), element
-// strides (b, h, w, c) for each; out (B,H,W,P*P) fp32 contiguous.  Returns
-// cudaGetLastError() (or the attribute call's error).
+// strides (b, h, w, c) for each; out (B,H,W,P*P) contiguous, fp32 unless
+// out_bf16.  fused = 0: the raw volume (out_bf16 must be 0); fused = 1:
+// its relu_l2norm.  Returns cudaGetLastError() (or the attribute call's
+// error).
 extern "C" int local_correlation_forward(
     const void* t, const void* s, void* out, int is_bf16, int B, int H, int W, int C,
     int P, long long tb, long long th, long long tw, long long tc, long long sb,
-    long long sh, long long sw, long long sc, void* stream) {
+    long long sh, long long sw, long long sc, int fused, int out_bf16, void* stream) {
+  if (out_bf16 && !fused) return (int)cudaErrorInvalidValue;
   const long long ts[4] = {tb, th, tw, tc};
   const long long ss[4] = {sb, sh, sw, sc};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (is_bf16) return launch<__nv_bfloat16>(t, s, o, B, H, W, C, P, ts, ss, st);
-  return launch<float>(t, s, o, B, H, W, C, P, ts, ss, st);
+  const Args a{t, s, out, B, H, W, C, ts, ss, fused, out_bf16,
+               static_cast<cudaStream_t>(stream)};
+  switch (P) {
+    case 1: return launch_p<1>(a, is_bf16);
+    case 3: return launch_p<3>(a, is_bf16);
+    case 5: return launch_p<5>(a, is_bf16);
+    case 7: return launch_p<7>(a, is_bf16);
+    case 9: return launch_p<9>(a, is_bf16);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

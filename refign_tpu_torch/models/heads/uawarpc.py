@@ -12,7 +12,8 @@ tensors (counterpart of ``refign_tpu/models/heads/uawarpc.py``).
   Per-level uncertainty modules chain a 1-channel log-variance.
 
 dtype boundaries as in the JAX head: correlations run in fp32 and are cast
-to the compute dtype (that of the features); decoders run in the compute
+to the compute dtype (that of the features; the local correlations are
+written in it by the kernel); decoders run in the compute
 dtype; the additive flow and log-variance chains stay fp32.  The eval-only
 iterative refinement unrolls a number of extra levels fixed by
 ``out_size`` and reuses ``decoder2`` and the level-2 uncertainty module.
@@ -133,7 +134,8 @@ class UAWarpCHead(nn.Module):
         up_flow4 = _bilinear(flow4_256, (h3, w3))
         up_u4 = _bilinear(u4_256, (h3, w3)) if uncert else None
         warp3 = warp(c23, _scale_flow(up_flow4, w3 / w_256, h3 / h_256))
-        corr3 = local_correlation_relu_l2norm(c13, warp3, PATCH).to(cdt)
+        corr3 = local_correlation_relu_l2norm(c13, warp3, PATCH,
+                                              out_dtype=cdt)
         res_flow3, x3 = self.decoder3(decoder_input(corr3, up_flow4, up_u4))
         res_flow3 = res_flow3 + self.refinement_module_adaptive(x3)
         flow3 = res_flow3.float() + up_flow4
@@ -157,7 +159,7 @@ class UAWarpCHead(nn.Module):
                 c13_bis = interpolate(c12, size, mode="area")
                 warp3b = warp(c23_bis, up_flow3 * ratio)
                 corr3b = local_correlation_relu_l2norm(
-                    c13_bis, warp3b, PATCH).to(c13_bis.dtype)
+                    c13_bis, warp3b, PATCH, out_dtype=c13_bis.dtype)
                 res_flow3, x3 = self.decoder2(
                     decoder_input(corr3b, up_flow3, up_u3))
                 flow3 = res_flow3.float() + up_flow3
@@ -170,7 +172,8 @@ class UAWarpCHead(nn.Module):
         up_flow3 = _bilinear(flow3, (h2, w2))
         up_u3 = _bilinear(u3, (h2, w2)) if uncert else None
         warp2 = warp(c22, _scale_flow(up_flow3, w2 / w_orig, h2 / h_orig))
-        corr2 = local_correlation_relu_l2norm(c12, warp2, PATCH).to(cdt)
+        corr2 = local_correlation_relu_l2norm(c12, warp2, PATCH,
+                                              out_dtype=cdt)
         res_flow2, x2 = self.decoder2(decoder_input(corr2, up_flow3, up_u3))
         flow2 = res_flow2.float() + up_flow3
         if uncert:
@@ -182,7 +185,8 @@ class UAWarpCHead(nn.Module):
         up_u2 = _bilinear(u2, (h1, w1)) if uncert else None
         up_feat2 = self.reduce(_bilinear(x2, (h1, w1)))
         warp1 = warp(c21, _scale_flow(up_flow2, w1 / w_orig, h1 / h_orig))
-        corr1 = local_correlation_relu_l2norm(c11, warp1, PATCH).to(cdt)
+        corr1 = local_correlation_relu_l2norm(c11, warp1, PATCH,
+                                              out_dtype=cdt)
         res_flow1, x1 = self.decoder1(
             decoder_input(corr1, up_flow2, up_u2, up_feat2))
         res_flow1 = res_flow1 + self.refinement_module_finest(x1)

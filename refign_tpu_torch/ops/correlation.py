@@ -6,9 +6,14 @@ odd patch size P (R = (P-1)//2) the local correlation is
     out[b, h, w, (dy+R)*P + (dx+R)] = sum_c t[b, h, w, c] * s[b, h+dy, w+dx, c]
 
 with zeros where (h+dy, w+dx) falls outside the image, computed in fp32
-whatever the input dtype.  ``local_correlation(t, s, P)`` launches the
-hand-written kernel ``csrc/local_correlation.cu`` on CUDA tensors (forward
-only) and runs :func:`local_correlation_reference` on CPU tensors.
+whatever the input dtype.  On CUDA tensors both ``local_correlation(t, s,
+P)`` (the raw fp32 volume) and ``local_correlation_relu_l2norm(t, s, P,
+out_dtype)`` (its ReLU + L2 over the P*P axis, applied inside the kernel
+before the volume leaves it, written in ``out_dtype``) launch the
+hand-written kernel ``csrc/local_correlation.cu`` once (forward only);
+on CPU tensors they run their plain versions,
+:func:`local_correlation_reference` and
+:func:`local_correlation_relu_l2norm_reference`.
 
 The global correlation is a plain fp32 batched product (``torch.bmm``), as
 the JAX package leaves it to XLA outside any Pallas kernel.
@@ -24,11 +29,13 @@ from . import _build
 
 __all__ = [
     "local_correlation", "local_correlation_reference",
-    "relu_l2norm", "local_correlation_relu_l2norm", "global_correlation",
+    "relu_l2norm", "local_correlation_relu_l2norm",
+    "local_correlation_relu_l2norm_reference", "global_correlation",
     "mutual_matching", "global_correlation_relu_l2norm", "MAX_PATCH",
 ]
 
-# the kernel keeps P accumulators per pixel in registers; P = 9 on the path
+# the kernel's 16-column window (x - 4 .. x + 11) of an 8-pixel row segment
+# holds every dx of P <= 9, the size on the path
 MAX_PATCH = 9
 
 
@@ -57,13 +64,14 @@ def _lib():
     fn = lib.local_correlation_forward
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(t: torch.Tensor, s: torch.Tensor,
-            patch_size: int) -> torch.Tensor:
+def _launch(t: torch.Tensor, s: torch.Tensor, patch_size: int,
+            fused: bool, out_dtype: torch.dtype) -> torch.Tensor:
     if t.requires_grad or s.requires_grad:
         raise NotImplementedError(
             "local_correlation on CUDA is forward-only; its backward kernels "
@@ -81,8 +89,8 @@ def _launch(t: torch.Tensor, s: torch.Tensor,
     B, H, W, C = t.shape
     if B > 65535:
         raise ValueError(f"local_correlation kernel takes B <= 65535, got {B}")
-    out = torch.empty((B, H, W, patch_size * patch_size),
-                      dtype=torch.float32, device=t.device)
+    out = torch.empty((B, H, W, patch_size * patch_size), dtype=out_dtype,
+                      device=t.device)
     if out.numel() == 0:
         return out
     fn = _lib()
@@ -92,7 +100,8 @@ def _launch(t: torch.Tensor, s: torch.Tensor,
         # view of grid_sample's NCHW output
         err = fn(t.data_ptr(), s.data_ptr(), out.data_ptr(),
                  int(t.dtype == torch.bfloat16), B, H, W, C, patch_size,
-                 *t.stride(), *s.stride(), stream)
+                 *t.stride(), *s.stride(), int(fused),
+                 int(out_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"local_correlation kernel launch failed: CUDA "
                            f"error {err}")
@@ -103,12 +112,12 @@ def _launch(t: torch.Tensor, s: torch.Tensor,
 def local_correlation(t: torch.Tensor, s: torch.Tensor,
                       patch_size: int = 9) -> torch.Tensor:
     """(B,H,W,C) target x (B,H,W,C) source -> (B,H,W,P*P) fp32 volume.
-    CUDA tensors launch the kernel (``launches`` counts each launch); CPU
-    tensors take the plain version."""
+    CUDA tensors launch the kernel (``launches`` counts each launch of
+    either mode); CPU tensors take the plain version."""
     _check_patch(patch_size)
     if t.device.type == "cpu":
         return local_correlation_reference(t, s, patch_size)
-    return _launch(t, s, patch_size)
+    return _launch(t, s, patch_size, False, torch.float32)
 
 
 local_correlation.launches = 0
@@ -122,11 +131,36 @@ def relu_l2norm(corr: torch.Tensor) -> torch.Tensor:
     return corr / ss.clamp_min(1e-24).sqrt()
 
 
+def _out_dtype(out_dtype) -> torch.dtype:
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
+    return out_dtype
+
+
+def local_correlation_relu_l2norm_reference(
+        t: torch.Tensor, s: torch.Tensor, patch_size: int = 9,
+        out_dtype=None) -> torch.Tensor:
+    """Plain version of the fused mode: the fp32 volume, ReLU + L2, then one
+    rounding to ``out_dtype`` (fp32 when None)."""
+    return relu_l2norm(local_correlation_reference(t, s, patch_size)).to(
+        _out_dtype(out_dtype))
+
+
 def local_correlation_relu_l2norm(t: torch.Tensor, s: torch.Tensor,
-                                  patch_size: int = 9) -> torch.Tensor:
-    """ReLU + L2-normalised local correlation, fp32
-    (``refign_tpu/ops/correlation.py:174-184``)."""
-    return relu_l2norm(local_correlation(t, s, patch_size))
+                                  patch_size: int = 9,
+                                  out_dtype=None) -> torch.Tensor:
+    """ReLU + L2-normalised local correlation
+    (``refign_tpu/ops/correlation.py:174-184``), computed in fp32 and
+    written in ``out_dtype`` (fp32 or bf16; fp32 when None).  CUDA tensors
+    launch the kernel's fused mode once; CPU tensors take the plain
+    version."""
+    _check_patch(patch_size)
+    out_dtype = _out_dtype(out_dtype)
+    if t.device.type == "cpu":
+        return local_correlation_relu_l2norm_reference(t, s, patch_size,
+                                                       out_dtype)
+    return _launch(t, s, patch_size, True, out_dtype)
 
 
 def global_correlation(source: torch.Tensor,

@@ -9,19 +9,25 @@ Covers what ``chip_smoke.py``'s main-path shapes do not: ragged N and M
 around K1's 16-row warp tiles, 64-query blocks and 64-key chunks, M = 1,
 1 to 8 heads, head-strided and misaligned inputs, K2's halo tiles with H,
 W and C ragged around the tile and the 64-channel slice, both weight
-layouts, the scalar K2 path (C not a multiple of 8), the launch counters,
-the absence of per-call copies and the wrappers' refusals.  Tolerances: a bf16 kernel output within
-2^-8*|ref| + 1e-4 of the fp32 plain version on the same inputs (one bf16
-rounding plus summation order); fp32 within 1e-5.
+layouts, the scalar K2 path (C not a multiple of 8), K3's raw and fused
+modes for both input and both output dtypes over both of its tile shapes,
+the NCHW-strided source and misaligned inputs, the launch counters, the
+absence of per-call copies and the wrappers' refusals.  Tolerances: a bf16
+kernel output within 2^-8*|ref| + 1e-4 of the fp32 plain version on the
+same inputs (one bf16 rounding plus summation order); fp32 within 1e-5;
+K3 (fp32 sums of unit-norm features) within 1e-5, and its fused bf16
+output within 2^-8*|ref| + 1e-5 of the fp32 fused plain version.
 """
 import pytest
 import torch
 
 from refign_tpu_torch import full_fp32_precision
+from refign_tpu_torch.ops import _build
 from refign_tpu_torch.ops.attention import (sra_attention,
                                             sra_attention_reference)
-from refign_tpu_torch.ops.correlation import (local_correlation,
-                                              local_correlation_reference)
+from refign_tpu_torch.ops.correlation import (
+    local_correlation, local_correlation_reference,
+    local_correlation_relu_l2norm, local_correlation_relu_l2norm_reference)
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                          dwconv3x3_gelu_reference)
 
@@ -34,7 +40,25 @@ def gen():
         pytest.skip("needs a CUDA device (run on the H100: python -m pytest "
                     "tests/test_torch_cuda.py)")
     full_fp32_precision()
+    # build and load every kernel before any test profiles: with a library
+    # loaded after a profiling session had begun in the process, a later
+    # session's trace now and then held no device events at all
+    _build.build_all()
+    for name in _build.kernel_names():
+        _build.load(name)
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _device_kernels(fn):
+    """Names of the kernels that one call of ``fn`` ran on the card, from
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _close(got, ref, dtype):
@@ -154,20 +178,14 @@ def test_dwconv_kernel_ragged_channel_slice(gen, C):
 def test_dwconv_kernel_launches_once_without_copies(gen):
     """One call is one launch of the kernel and nothing else on the card:
     no weight transpose, no contiguous copy."""
-    from torch.profiler import ProfilerActivity, profile
     x = torch.randn(2, 34, 34, 128, generator=gen, device="cuda").bfloat16()
     w = torch.randn(128, 1, 3, 3, generator=gen, device="cuda").bfloat16()
     b = torch.randn(128, generator=gen, device="cuda").bfloat16()
     dwconv3x3_gelu(x, w, b)  # build and load outside the window
     torch.cuda.synchronize()
     before = dwconv3x3_gelu.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dwconv3x3_gelu(x, w, b)
-        torch.cuda.synchronize()
+    names = _device_kernels(lambda: dwconv3x3_gelu(x, w, b))
     assert dwconv3x3_gelu.launches == before + 1
-    names = [e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 1 and "dwconv3x3_gelu_kernel" in names[0], names
 
 
@@ -186,20 +204,48 @@ def _unit_features(gen, B, H, W, C, dtype):
     return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
 
 
+# on an H100 (132 SMs) the last two give the launcher's 8-row tiles (at
+# least one block per SM), the others its 2-row tiles
+CORR_CASES = [(1, 1, 1, 1, 9), (2, 9, 33, 40, 9), (1, 17, 31, 13, 5),
+              (2, 8, 32, 128, 9), (1, 12, 70, 24, 3), (1, 5, 6, 7, 7),
+              (1, 4, 40, 8, 1), (2, 130, 130, 40, 9), (3, 112, 100, 32, 7)]
+
+
+def _corr_close(got, t, s, P, fused, out_dtype):
+    """Raw: within 1e-5 of the plain volume.  Fused: within 1e-5 (fp32
+    out) or 2^-8*|ref| + 1e-5 (bf16 out) of the fp32 fused plain version."""
+    if fused:
+        ref = local_correlation_relu_l2norm_reference(t, s, P)
+    else:
+        ref = local_correlation_reference(t, s, P)
+    assert got.dtype == out_dtype and got.shape == ref.shape
+    err = (got.float() - ref).abs()
+    rel = 2.0 ** -8 if out_dtype == torch.bfloat16 else 0.0
+    assert (err <= rel * ref.abs() + 1e-5).all(), err.max()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,H,W,C,P", [(1, 1, 1, 1, 9), (2, 9, 33, 40, 9),
-                                       (1, 17, 31, 13, 5), (2, 8, 32, 128, 9),
-                                       (1, 12, 70, 24, 3), (1, 5, 6, 7, 7),
-                                       (1, 4, 40, 8, 1)])
+@pytest.mark.parametrize("B,H,W,C,P", CORR_CASES)
 def test_local_correlation_kernel_matches_plain(gen, dtype, B, H, W, C, P):
     t = _unit_features(gen, B, H, W, C, dtype)
     s = _unit_features(gen, B, H, W, C, dtype)
     before = local_correlation.launches
     got = local_correlation(t, s, P)
     assert local_correlation.launches == before + 1
-    ref = local_correlation_reference(t, s, P)
-    assert got.dtype == torch.float32 and got.shape == ref.shape
-    assert (got - ref).abs().max().item() <= 1e-5
+    _corr_close(got, t, s, P, False, torch.float32)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,P", CORR_CASES)
+def test_local_correlation_fused_matches_plain(gen, dtype, out_dtype, B, H,
+                                              W, C, P):
+    t = _unit_features(gen, B, H, W, C, dtype)
+    s = _unit_features(gen, B, H, W, C, dtype)
+    before = local_correlation.launches
+    got = local_correlation_relu_l2norm(t, s, P, out_dtype=out_dtype)
+    assert local_correlation.launches == before + 1
+    _corr_close(got, t, s, P, True, out_dtype)
 
 
 def test_local_correlation_kernel_strided_source(gen):
@@ -210,6 +256,52 @@ def test_local_correlation_kernel_strided_source(gen):
     got = local_correlation(t, s, 9)
     ref = local_correlation_reference(t.contiguous(), s.contiguous(), 9)
     assert (got - ref).abs().max().item() <= 1e-5
+
+
+def _layout(gen, kind, B, H, W, C, dtype):
+    """(B,H,W,C) unit-norm features in one of the layouts the kernel
+    stages: NHWC, the NHWC view of NCHW, or either shifted by one element
+    so that no vector load is aligned."""
+    if kind == "nhwc":
+        return _unit_features(gen, B, H, W, C, dtype)
+    if kind == "nhwc_shifted":
+        return _unit_features(gen, B, H, W, C + 1, dtype)[..., 1:]
+    x = torch.randn(B, C, H, W + (kind == "nchw_shifted"), generator=gen,
+                    device="cuda")
+    x = (x / x.norm(dim=1, keepdim=True)).to(dtype)
+    if kind == "nchw_shifted":
+        x = x[..., 1:]
+    return x.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t_kind,s_kind", [
+    ("nhwc", "nchw"), ("nhwc_shifted", "nchw_shifted"),
+    ("nchw", "nhwc"), ("nhwc", "nhwc_shifted")])
+@pytest.mark.parametrize("B,H,W,C", [(2, 11, 36, 40), (2, 128, 144, 32)])
+def test_local_correlation_kernel_layouts(gen, t_kind, s_kind, dtype, fused,
+                                          B, H, W, C):
+    t = _layout(gen, t_kind, B, H, W, C, dtype)
+    s = _layout(gen, s_kind, B, H, W, C, dtype)
+    out_dtype = torch.bfloat16 if fused else torch.float32
+    got = (local_correlation_relu_l2norm(t, s, 9, out_dtype=out_dtype)
+           if fused else local_correlation(t, s, 9))
+    _corr_close(got, t.contiguous(), s.contiguous(), 9, fused, out_dtype)
+
+
+def test_local_correlation_fused_launches_once(gen):
+    """A fused call is one launch of the kernel and nothing else on the
+    card: no copy of the strided source, no separate ReLU, norm or cast."""
+    t = _unit_features(gen, 4, 32, 32, 256, torch.bfloat16)
+    s = _layout(gen, "nchw", 4, 32, 32, 256, torch.bfloat16)
+    local_correlation_relu_l2norm(t, s, 9, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()  # build and load outside the window
+    before = local_correlation.launches
+    names = _device_kernels(lambda: local_correlation_relu_l2norm(
+        t, s, 9, out_dtype=torch.bfloat16))
+    assert local_correlation.launches == before + 1
+    assert len(names) == 1 and "local_correlation" in names[0], names
 
 
 def test_kernels_launch_on_every_device(gen):
@@ -246,3 +338,7 @@ def test_local_correlation_kernel_refusals(gen):
         local_correlation(t, t.bfloat16(), 9)
     with pytest.raises(ValueError):
         local_correlation(t, t, 11)
+    with pytest.raises(NotImplementedError):
+        local_correlation_relu_l2norm(t, t.clone().requires_grad_(), 9)
+    with pytest.raises(TypeError):
+        local_correlation_relu_l2norm(t, t, 9, out_dtype=torch.float16)

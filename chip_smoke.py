@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    CUDA-event times (batches of back-to-back calls) beside the least time
    the card could take (bound), the share of that bound reached, and one
    PyTorch library call that computes the same function, where there is
-   one;
+   one; and the K1 and K2 backward kernels against autograd of their plain
+   versions at the train step's shapes (bf16, fp32) and ragged ones (the
+   plain and library backwards timed by their device time, as autograd's
+   host work outlasts their kernels);
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
@@ -29,10 +32,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    their per-pixel sum, and flow and probabilities must agree with the
    plain-version run; a small fp32 network checks ``align_forward``
    tightly;
-6. each kernel's time per call of its path (K1 and K2 summed over the 52
+6. UDA train step: the Refign-HRDA* step of ``refign_hrda_star.yaml``
+   (MiT-B5 + DAFormer + SegFormer scale attention with remat, the frozen
+   VGG-16 + UAWarpC, adapt-to-reference, the ImageNet feature distance,
+   DACS, AdamW; seeded random weights, bf16 on fp32 masters) on a seeded
+   synthetic B=4 1024^2 batch through ``build_uda_trainer`` and
+   ``uda_train_step``: from one state with the same draws, one step's
+   losses and every parameter's gradient through the kernels must agree
+   with the plain versions' (and tightly on a small fp32 model); one step
+   must launch K1 and K2 312 times forward and 104 times backward and K3 3
+   times; then 1 warm-up and 5 timed steps with finite losses, the peak
+   memory and a profile;
+7. each kernel's time per call of its path (K1 and K2 summed over the 52
    launches of a forward, beside SDPA's and cuDNN conv + gelu's sums; K3
-   over an align), the ``kernels`` JSON line, the card line and, last, the
-   result line.
+   over an align; the backward kernels over the 104 launches of a train
+   step, beside SDPA's and cuDNN's forward + backward), the ``kernels``
+   JSON line, the card line and, last, the result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -67,6 +82,30 @@ STAGES = [  # (launches, tokens N, keys M, heads H, dwconv H=W, hidden C)
 ]
 LAUNCHES_PER_FORWARD = sum(s[0] for s in STAGES)  # 52
 
+# the UDA train step (refign_hrda_star.yaml: B=4 1024^2 crops): each
+# student pass runs MiT-B5 on 8 rows of 512^2 (4 LR images, 4 HR crops) and
+# has one backward; per stage, launches per pass and the shapes each kernel
+# sees there
+UDA_B, UDA_HW = 4, 1024
+TRAIN_ROWS = 8
+TRAIN_STAGES = [  # (launches, tokens N, keys M, heads H, dwconv H=W, hidden C)
+    (3, 16384, 256, 1, 128, 256),
+    (6, 4096, 256, 2, 64, 512),
+    (40, 1024, 256, 5, 32, 1280),
+    (3, 256, 256, 8, 16, 2048),
+]
+TRAIN_PASSES = 2
+# launches per step: the forward kernels run in the teacher, the ImageNet
+# copy, both student passes and both recomputes of the remat; the backward
+# kernels in both student backwards; K3 in the align step
+TRAIN_LAUNCHES = {
+    "sra_attention": 6 * LAUNCHES_PER_FORWARD,
+    "sra_attention_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
+    "dwconv3x3_gelu": 6 * LAUNCHES_PER_FORWARD,
+    "dwconv3x3_gelu_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
+    "local_correlation": 3,
+}
+
 # UAWarpC local correlation (K3) at the UDA geometry: B=4 1024^2 crops,
 # P=9, one launch per level per align forward: (B, H, W, C) of levels
 # 1, 2, 3 (refign_tpu/models/heads/uawarpc.py:253, :230, :170)
@@ -88,6 +127,33 @@ E2E_MAX_REL = 5e-2
 E2E_MEAN_REL = 1e-2
 # small fp32 model, kernels against plain versions
 E2E_FP32_REL = 1e-4
+# the train step, kernels against plain versions, from one state with the
+# same draws: the three losses (relative) and every parameter's gradient
+# (relative L2).  fp32 (mit_b1, B=2 256^2): summation order only.  bf16
+# (MiT-B5, B=4 1024^2): both round every activation to bf16 at the same
+# places; one-ulp differences travel through 52 blocks, the heads and the
+# backward.  Each limit is about 10x the reading on an H100 (fp32: losses
+# 2.5e-7, largest per-parameter gradient 1.14e-4, median parameter
+# 1.53e-6, all gradients 8.7e-6; bf16: losses 2.1e-5, per parameter
+# 4.94e-2, median 2.48e-2, all 1.97e-2).  In bf16 that rounding noise is
+# ~2.5 % on the median gradient, so the full-width comparison checks the
+# wiring of the step (every path through the kernels, the right inputs);
+# the kernels themselves are held tightly by the backward check of phase 3
+# and by the fp32 step.
+TRAIN_FP32_LOSS_REL = 3e-6
+TRAIN_FP32_GRAD_REL = 1e-3
+TRAIN_FP32_MEDIAN_REL = 1.5e-5
+TRAIN_FP32_TOTAL_REL = 1e-4
+TRAIN_BF16_LOSS_REL = 2e-4
+TRAIN_BF16_GRAD_REL = 0.5
+TRAIN_BF16_MEDIAN_REL = 0.25
+TRAIN_BF16_TOTAL_REL = 0.2
+# backward kernels against autograd of the plain versions on the same
+# inputs: fp32 sums over up to 131k terms (dw at stage 1) in another
+# order, so within GRAD_REL of the largest |ref| of each gradient (the
+# reading on an H100 is <= 4.1e-6 of it); a bf16 gradient adds one bf16
+# rounding, within BF16_REL*|ref| on top
+GRAD_REL = 3e-5
 # K3 sums in fp32 from bf16 or fp32 inputs: only summation order separates
 # its raw volume and its fused fp32 output from their plain versions;
 # inputs are unit-norm features as in the head.  A fused bf16 output adds
@@ -162,6 +228,28 @@ def time_ms(fn, reps=20, warmup=3, batch=10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def device_ms(fn, calls=10) -> float:
+    """Device time of one call of ``fn``: the kernels' own time summed by
+    the profiler over ``calls`` calls, divided by ``calls``.  For closures
+    whose host work (autograd's Python and dispatch) can outlast their
+    kernels, where CUDA events around back-to-back calls would time the
+    host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / calls
 
 
 def check_close(name, got, ref, rel, abs_):
@@ -354,6 +442,133 @@ def phase_kernels():
             f"{bound:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
             f"of it)  plain {row['plain_ms']:.4f} ms  library {lib}")
         del got, ref
+    return rows
+
+
+def check_grad(name, got, ref, dtype):
+    """A backward kernel's gradient against the fp32 gradient of the plain
+    version: |got - ref| <= GRAD_REL*max|ref| (+ BF16_REL*|ref| in bf16);
+    returns the max abs error."""
+    import torch
+    if got.dtype != dtype:
+        raise AssertionError(f"{name}: gradient {got.dtype}, not {dtype}")
+    return check_close(name, got, ref,
+                       BF16_REL if dtype == torch.bfloat16 else 0.0,
+                       GRAD_REL * ref.abs().max().item())
+
+
+def phase_backward_kernels():
+    """K1 and K2 backward against autograd of their plain versions, at the
+    train step's shapes (bf16: the path; fp32: the precision check) and
+    ragged ones, k/v always the two halves of one kv tensor."""
+    import torch
+    import torch.nn.functional as F
+    from refign_tpu_torch.ops.attention import (sra_attention_backward,
+                                                sra_attention_reference)
+    from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu_backward,
+                                             dwconv3x3_gelu_reference)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    scale = 64 ** -0.5
+    rows = []
+
+    def bound(nbytes, flops, itemsize):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / peak_flops(itemsize)
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
+    def grads_of(fn, inputs, g):
+        """fp32 gradient of the plain version on the fp32 values of the
+        inputs (the reference), and a closure timing the plain version's
+        own backward in the inputs' dtype (graph kept)."""
+        ref_in = [t.detach().float().requires_grad_() for t in inputs]
+        ref = torch.autograd.grad(fn(*ref_in), ref_in, g.float())
+        own_in = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*own_in)
+        return ref, lambda: torch.autograd.grad(out, own_in, g,
+                                                retain_graph=True)
+
+    cases = []
+    for n, N, M, H, S, C in TRAIN_STAGES:
+        per_step = n * TRAIN_PASSES
+        cases += [("sra_attention_backward", per_step, (TRAIN_ROWS, N, M, H),
+                   "main", bf16),
+                  ("sra_attention_backward", 0, (TRAIN_ROWS, N, M, H),
+                   "fp32", torch.float32)]
+    cases += [("sra_attention_backward", 0, (2, 1000, 17, 3), "ragged", dt)
+              for dt in (bf16, torch.float32)]
+    for n, N, M, H, S, C in TRAIN_STAGES:
+        per_step = n * TRAIN_PASSES
+        cases += [("dwconv3x3_gelu_backward", per_step, (TRAIN_ROWS, S, C),
+                   "main", bf16),
+                  ("dwconv3x3_gelu_backward", 0, (TRAIN_ROWS, S, C), "fp32",
+                   torch.float32)]
+    cases += [("dwconv3x3_gelu_backward", 0, (2, 33, 40), "ragged", dt)
+              for dt in (bf16, torch.float32)]
+
+    for name, n_launch, shape, kind, dtype in cases:
+        if name == "sra_attention_backward":
+            B, N, M, H = shape
+            q, k, v = attention_case(gen, B, N, M, H, dtype)
+            g = torch.randn(B, N, H, 64, generator=gen, device="cuda").to(dtype)
+            (dq_r, dk_r, dv_r), plain = grads_of(
+                lambda a, b_, c: sra_attention_reference(a, b_, c, scale),
+                (q, k, v), g)
+            got = sra_attention_backward(q, k, v, g, scale)
+            refs = (dq_r, dk_r, dv_r)
+            kernel = lambda: sra_attention_backward(  # noqa: E731
+                q, k, v, g, scale)
+            qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                          for t in (q, k, v))
+            gt = g.transpose(1, 2)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                F.scaled_dot_product_attention(qs, ks, vs, scale=scale),
+                (qs, ks, vs), gt)
+            nbytes = (3 * B * N * H * 64 + 4 * B * M * H * 64) \
+                * q.element_size()
+            bnd, bound_by = bound(nbytes, 10.0 * B * H * N * M * 64,
+                                  q.element_size())
+        else:
+            B, S, C = shape
+            x, w, b = dwconv_case(gen, B, S, C, dtype)
+            # the main path's weights are OIHW; the ragged cases take HWIO
+            if kind == "ragged":
+                w = w.permute(2, 3, 1, 0)
+            g = torch.randn(B, S, S, C, generator=gen, device="cuda").to(dtype)
+            refs, plain = grads_of(dwconv3x3_gelu_reference, (x, w, b), g)
+            got = dwconv3x3_gelu_backward(x, w, b, g)
+            kernel = lambda: dwconv3x3_gelu_backward(x, w, b, g)  # noqa
+            xc = x.detach().permute(0, 3, 1, 2).requires_grad_()
+            wc = (w if w.shape[0] == C else w.permute(3, 2, 0, 1)) \
+                .detach().requires_grad_()
+            bc = b.detach().requires_grad_()
+            yc = F.gelu(F.conv2d(xc, wc, bc, padding=1, groups=C))
+            gc = g.permute(0, 3, 1, 2)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                yc, (xc, wc, bc), gc, retain_graph=True)
+            nbytes = (3 * B * S * S * C + 20 * C) * x.element_size()
+            bnd, bound_by = bound(nbytes, 60.0 * B * S * S * C,
+                                  x.element_size())
+        torch.cuda.synchronize()
+        err = max(check_grad(f"{name}{shape} {kind} d{i}", t, r, dtype)
+                  for i, (t, r) in enumerate(zip(got, refs)))
+        # the plain and library backwards run through autograd, whose host
+        # work outlasts their kernels at these shapes: their device time
+        row = dict(name=name, shape=list(shape), kind=kind, mode="",
+                   dtype=str(dtype).replace("torch.", ""),
+                   launches_per_forward=n_launch, max_abs_err=err,
+                   ms=time_ms(kernel), plain_ms=device_ms(plain),
+                   library_ms=device_ms(library), bound_ms=bnd,
+                   bound_by=bound_by)
+        row["bound_share"] = bnd / row["ms"]
+        rows.append(row)
+        log(f"  {name:23s} {kind:6s} {row['dtype']:8s} {str(shape):22s} "
+            f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
+            f"{bnd:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
+            f"of it)  plain {row['plain_ms']:.4f} ms  library "
+            f"{row['library_ms']:.4f} ms")
+        del got, refs, plain, library
     return rows
 
 
@@ -567,14 +782,197 @@ def phase_align(card):
     return launches, sec
 
 
+def uda_batch(B, S, seed, device):
+    """A seeded synthetic UDA batch: normalised-scale source, target and
+    reference images (the reference a shifted, noisy target, so the warp
+    has structure to find) and blocky source labels of 128-pixel blocks
+    (so the feature-distance mask keeps pixels) with an ignored strip."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    trg = torch.randn(B, S, S, 3, generator=g)
+    ref = 0.9 * trg.roll(3, dims=2) + 0.1 * torch.randn(B, S, S, 3,
+                                                        generator=g)
+    blocks = torch.randint(0, 19, (B, S // 128, S // 128), generator=g)
+    sem = blocks.repeat_interleave(128, 1).repeat_interleave(128, 2)
+    sem[:, :8] = 255
+    batch = dict(image_src=torch.randn(B, S, S, 3, generator=g),
+                 image_trg=trg, image_ref=ref, semantic_src=sem)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def grads_kernels_vs_plain(trainer, batch, gen):
+    """From one state and the same draws, the gradient of one step through
+    the kernels and through their plain versions (the state is restored
+    after each).  Returns the two runs' logs and gradients by name."""
+    import torch
+    from refign_tpu_torch.uda.trainer import draw_step, forward_backward
+    state = trainer.state
+    draws = draw_step(trainer.cfg, batch, gen)
+    draws.use_ref_as_target = False  # the Refign branch, with its align
+    saved = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (state.student, state.teacher)]
+
+    def run():
+        logs = forward_backward(trainer, batch, draws)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in state.student.named_parameters()}
+        state.optimizer.zero_grad(set_to_none=True)
+        for m, sd in zip((state.student, state.teacher), saved):
+            m.load_state_dict(sd)
+        return logs, grads
+
+    kernel = run()
+    plain_versions(True)
+    try:
+        plain = run()
+    finally:
+        plain_versions(False)
+    return kernel, plain
+
+
+def compare_step(what, kernel, plain, loss_limit, grad_limit, total_limit,
+                 median_limit):
+    """Relative differences of the three losses and the relative L2 error
+    of every parameter's gradient, kernels against plain versions: the
+    largest, the median and all gradients together, each against its
+    limit.  A gradient that is zero in exact arithmetic (a bias that only
+    shifts a channel before a batch-statistics BN, which removes any such
+    shift) holds rounding noise alone, so each parameter's error is taken
+    relative to its gradient's norm or to a thousandth of the RMS
+    parameter gradient norm, whichever is larger."""
+    import torch
+    (logs_k, g_k), (logs_p, g_p) = kernel, plain
+    loss_rel = {}
+    for key in ("train_loss_src", "train_loss_featdist_src",
+                "train_loss_uda_trg"):
+        a, b = float(logs_k[key]), float(logs_p[key])
+        if not (torch.isfinite(logs_k[key]) and torch.isfinite(logs_p[key])):
+            raise AssertionError(f"{what}: {key} not finite ({a}, {b})")
+        loss_rel[key] = abs(a - b) / max(abs(b), 1e-12)
+    norms = {n: g.norm().item() for n, g in g_p.items()}
+    floor = 1e-3 * (sum(v * v for v in norms.values()) / len(norms)) ** 0.5
+    rel = {n: (g_k[n] - g_p[n]).norm().item() / max(norms[n], floor)
+           for n in g_p}
+    at_floor = sum(norms[n] < floor for n in norms)
+    total = (sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p).sqrt()
+             / sum((g_p[n] ** 2).sum() for n in g_p).sqrt()).item()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    median = statistics.median(rel.values())
+    log(f"  {what}: losses kernels vs plain rel "
+        + ", ".join(f"{k[len('train_loss_'):]} {v:.2e}"
+                    for k, v in loss_rel.items())
+        + f" (limit {loss_limit:g}); gradient rel L2 over all "
+        f"{len(rel)} parameters {total:.2e}, median parameter "
+        f"{median:.2e} (limit {median_limit:g}), largest per parameter "
+        + ", ".join(f"{n} {v:.2e}" for n, v in worst)
+        + f" (limit {grad_limit:g}; {at_floor} gradients below the floor "
+        f"{floor:.2e}; all: limit {total_limit:g}); loss "
+        f"{float(logs_k['train_loss_total']):.4f}")
+    if not (max(loss_rel.values()) <= loss_limit
+            and max(rel.values()) <= grad_limit and total <= total_limit
+            and median <= median_limit):
+        raise AssertionError(f"{what}: kernels disagree with plain versions")
+    return max(loss_rel.values()), max(rel.values()), total
+
+
+def phase_train(card):
+    import dataclasses
+    import torch
+    from refign_tpu_torch.entry import (REFIGN_HRDA_STAR, build_uda_trainer,
+                                        uda_train_step)
+    from refign_tpu_torch.ops.attention import (sra_attention,
+                                                sra_attention_backward)
+    from refign_tpu_torch.ops.correlation import local_correlation as k3
+    from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                             dwconv3x3_gelu_backward)
+    from refign_tpu_torch.uda.trainer import draw_step, train_step
+
+    counted = {"sra_attention": sra_attention,
+               "sra_attention_backward": sra_attention_backward,
+               "dwconv3x3_gelu": dwconv3x3_gelu,
+               "dwconv3x3_gelu_backward": dwconv3x3_gelu_backward,
+               "local_correlation": k3}
+
+    # small fp32 model first: kernels against plain versions, tightly.
+    # mit_b1 (MiT-B5's widths and heads at depth 2): K1 takes head dim 64,
+    # and mit_b0's first stages have 32
+    cfg32 = dataclasses.replace(REFIGN_HRDA_STAR, compute_dtype="float32")
+    small = build_uda_trainer("mit_b1", cfg=cfg32, device="cuda", seed=1,
+                              channels=64)
+    sbatch = uda_batch(2, 256, 1, "cuda")
+    compare_step("mit_b1 fp32 B=2 256^2",
+                 *grads_kernels_vs_plain(small, sbatch,
+                                         torch.Generator().manual_seed(1)),
+                 TRAIN_FP32_LOSS_REL, TRAIN_FP32_GRAD_REL,
+                 TRAIN_FP32_TOTAL_REL, TRAIN_FP32_MEDIAN_REL)
+    del small, sbatch
+
+    t0 = time.perf_counter()
+    trainer = build_uda_trainer("mit_b5", device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"  built the MiT-B5 Refign-HRDA* trainer in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = uda_batch(UDA_B, UDA_HW, 0, "cuda")
+    gen = torch.Generator().manual_seed(0)
+    compare_step(f"MiT-B5 bf16 B={UDA_B} {UDA_HW}^2",
+                 *grads_kernels_vs_plain(trainer, batch, gen),
+                 TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL,
+                 TRAIN_BF16_TOTAL_REL, TRAIN_BF16_MEDIAN_REL)
+
+    # one step counted, the Refign branch (the adapt-to-reference coin
+    # skips the align step in half the steps)
+    draws = draw_step(trainer.cfg, batch, gen)
+    draws.use_ref_as_target = False
+    for f in counted.values():
+        f.launches = 0
+    logs = train_step(trainer, batch, draws)
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in counted.items()}
+    log(f"  launches in one train step: {launches}")
+    for name, n in launches.items():
+        if n != TRAIN_LAUNCHES[name]:
+            raise AssertionError(f"{name} launched {n} times in a train "
+                                 f"step, expected {TRAIN_LAUNCHES[name]}")
+
+    all_logs = [logs]
+    uda_train_step(trainer, batch, gen)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_logs.append(uda_train_step(trainer, batch, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    sec = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [{k: float(v) for k, v in lg.items()} for lg in all_logs]
+    if not all(all(map(lambda v: v == v and abs(v) != float("inf"),
+                       lg.values())) for lg in losses):
+        raise AssertionError(f"non-finite losses: {losses}")
+    log(f"  warm train step (B={UDA_B} {UDA_HW}^2): median "
+        f"{sec * 1e3:.1f} ms over {len(times)} "
+        f"({[round(x * 1e3, 1) for x in times]} ms) = {UDA_B / sec:.3f} "
+        f"source images/s on {card}; peak memory {peak:.1f} GiB")
+    log("  losses (counted step, then the timed steps): " + "; ".join(
+        ", ".join(f"{k[len('train_'):]} {v:.4f}" for k, v in lg.items())
+        for lg in losses))
+    profile_device(lambda: uda_train_step(trainer, batch, gen), sec,
+                   "train step", top_n=25)
+    return launches, sec, peak
+
+
 KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 sra_attention", ("sra_attention_kernel",)),
+    ("K1 backward", ("attn_bwd_",)),
     ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
+    ("K2 backward", ("dwconv_bwd_",)),
     ("K3 local_correlation", ("local_correlation",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
     # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
-    ("convolution (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                             "winograd")),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma", "sm90_",
                          "cublas")),
     ("resize", ("upsample", "interpolate", "bilinear")),
@@ -611,7 +1009,8 @@ def profile_device(fn, sec, what, top_n=12):
         return
     log(f"  profiled {what}: device busy {total / 1e3:.1f} ms of the "
         f"{sec * 1e3:.1f} ms warm {what} "
-        f"({100 * total / 1e3 / (sec * 1e3):.1f} %)")
+        f"({100 * total / 1e3 / (sec * 1e3):.1f} %), "
+        f"{sum(n for _, n, _ in top)} device events")
     for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:22s} {us / 1e3:8.2f} ms  {100 * us / total:5.1f} %")
     for us, n, key in sorted(top, reverse=True)[:top_n]:
@@ -636,67 +1035,88 @@ def main() -> int:
     refign_tpu_torch.full_fp32_precision()
 
     card = card_line()
-    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"[2/6] built {len(logs)} kernel sources in "
+    log(f"[2/7] built {len(logs)} kernel sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in ptxas_summary(text):
             log(f"  {name}: {line}")
 
-    log("[3/6] kernels against plain versions (bf16 limit "
-        f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g})")
+    log("[3/7] kernels against plain versions (bf16 limit "
+        f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g}; "
+        f"backward: {GRAD_REL:g}*max|ref|, + {BF16_REL:g}*|ref| in bf16)")
     rows = phase_kernels()
+    rows += phase_backward_kernels()
 
-    log("[4/6] HRDA* path")
+    log("[4/7] HRDA* path")
     launches, sec = phase_main_path(card)
-    log("[5/6] align path")
+    log("[5/7] align path")
     launches["local_correlation"], align_sec = phase_align(card)
+    log("[6/7] UDA train step")
+    train_launches, train_sec, peak = phase_train(card)
+    for name in ("sra_attention_backward", "dwconv3x3_gelu_backward"):
+        launches[name] = train_launches[name]
 
-    log(f"[6/6] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
     sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
                                  "refign_tpu/ops/attention.py:82"),
                "dwconv3x3_gelu": ("refign_tpu_torch/csrc/dwconv3x3_gelu.cu",
                                   "refign_tpu/ops/dwconv.py:102"),
                "local_correlation": (
                    "refign_tpu_torch/csrc/local_correlation.cu",
-                   "refign_tpu/ops/correlation.py:106")}
+                   "refign_tpu/ops/correlation.py:106"),
+               # the backward of each custom_vjp (the Pallas kernels have
+               # none of their own)
+               "sra_attention_backward": (
+                   "refign_tpu_torch/csrc/sra_attention_backward.cu",
+                   "refign_tpu/ops/attention.py:183"),
+               "dwconv3x3_gelu_backward": (
+                   "refign_tpu_torch/csrc/dwconv3x3_gelu_backward.cu",
+                   "refign_tpu/ops/dwconv.py:162")}
     kernels = []
     for name, (src, replaces) in sources.items():
         main_rows = [r for r in rows if r["name"] == name
                      and r["kind"] == "main"]
 
-        def per_forward(key):
+        def per_call(key):
             if any(r[key] is None for r in main_rows):
                 return None
             return sum(r[key] * r["launches_per_forward"] for r in main_rows)
 
         bound_ops = [r for r in main_rows if r["bound_by"] == "operations"]
-        ms, bound = per_forward("ms"), per_forward("bound_ms")
+        ms, bound = per_call("ms"), per_call("bound_ms")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
+            launches_train_step=train_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
-            ms=ms, plain_ms=per_forward("plain_ms"), bound_ms=bound,
+            ms=ms, plain_ms=per_call("plain_ms"), bound_ms=bound,
             bound_by=("operations" if 2 * len(bound_ops) > len(main_rows)
                       else "bytes"),
-            library_ms=per_forward("library_ms"), bound_share=bound / ms))
-    log("kernel times are per forward: K1 and K2 summed over their 52 "
-        "launches in one 1080x1920 HRDA* forward "
+            library_ms=per_call("library_ms"), bound_share=bound / ms))
+    log("kernel times are per call of each kernel's path: K1 and K2 summed "
+        "over their 52 launches in one 1080x1920 HRDA* forward "
         f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
-        f"1024^2 align and refine ({align_sec * 1e3:.1f} ms)")
+        f"1024^2 align and refine ({align_sec * 1e3:.1f} ms), K1 and K2 "
+        "backward over their 104 launches in one B=4 1024^2 train step "
+        f"({train_sec * 1e3:.1f} ms, peak memory {peak:.1f} GiB)")
     raw = [r for r in rows if r["name"] == "local_correlation"
            and r["kind"] == "raw"]
     raw_ms, raw_bound = (sum(r[k] for r in raw) for k in ("ms", "bound_ms"))
     log(f"  local_correlation raw fp32 mode (off the path) {raw_ms:.3f} ms "
         f"per align, bound {raw_bound:.4f} ms "
         f"({100 * raw_bound / raw_ms:.1f} % of it)")
-    for k, lib in zip(kernels, ("SDPA", "cuDNN conv + gelu", None)):
-        log(f"  {k['name']:17s} {k['ms']:.3f} ms per call of its path, "
+    libs = {"sra_attention": "SDPA", "dwconv3x3_gelu": "cuDNN conv + gelu",
+            "sra_attention_backward": "SDPA forward + backward",
+            "dwconv3x3_gelu_backward": "cuDNN conv + gelu backward"}
+    for k in kernels:
+        lib = libs.get(k["name"])
+        log(f"  {k['name']:23s} {k['ms']:.3f} ms per call of its path, "
             f"bound {k['bound_ms']:.4f} ms ({100 * k['bound_share']:.1f} % "
             "of it)" + ("" if lib is None else
                         f", {lib} {k['library_ms']:.3f} ms "

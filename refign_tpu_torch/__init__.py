@@ -3,10 +3,11 @@
 The package mirrors ``refign_tpu`` module by module (``nn``, ``ops``,
 ``models``, ``models/heads``, ``alignment``, ``uda``, ``utils``) and keeps
 its NHWC layout at every public function.  The three Pallas kernels of the
-JAX package (SRA attention and the fused depthwise conv on the HRDA★
-inference path, the local correlation on the alignment path) are CUDA C++
-kernels under ``csrc/``, built with ``nvcc`` at first use
-(``ops/_build.py``).
+JAX package (SRA attention and the fused depthwise conv in every MiT
+block, the local correlation on the alignment path) are CUDA C++ kernels
+under ``csrc/``, and so are the backwards of the first two (their
+``custom_vjp`` in the JAX package), which the UDA train step runs; all are
+built with ``nvcc`` at first use (``ops/_build.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

@@ -13,10 +13,18 @@ pyramid, UAWarpC head with uncertainty) of
 ``configs/cityscapes_acdc/refign_hrda_star.yaml``; ``align_forward`` is
 UAWarpC's evaluation forward and ``refign_align_refine`` Refign's align
 and refine of the teacher's pseudo-labels inside a UDA step.
+
+UDA training (counterpart of ``make_uda_train_step`` with the
+``configs/cityscapes_acdc/refign_hrda_star.yaml`` settings):
+``build_uda_trainer`` builds the student (MiT + DAFormer + SegFormer scale
+attention, fp32 masters, remat), its EMA teacher, the frozen ImageNet
+backbone copy, the frozen alignment network and AdamW with the
+warmup-poly schedule, all from a seed; ``uda_train_step`` takes one step
+on a batch, its random draws made from a host generator.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,8 +36,24 @@ from .models.mix_transformer import MixVisionTransformer
 from .models.segmentor import Segmentor, slide_inference
 from .models.vgg import VGG
 from .parallel.mesh import cast_floating
+from .train.optim import make_uda_optimizer
 from .uda.refine import refine
-from .uda.trainer import align_fn
+from .uda.trainer import (UDAConfig, UDATrainer, align_fn, draw_step,
+                          init_uda_state, train_step)
+
+# the UDA settings of configs/cityscapes_acdc/refign_hrda_star.yaml
+REFIGN_HRDA_STAR = UDAConfig(use_hrda=True, hrda_output_stride=4,
+                             hr_loss_weight=0.1, use_refign=True,
+                             use_align=True, adapt_to_ref=True, gamma=0.25,
+                             enable_fdist=True)
+# the model and optimizer settings of the same file
+UDA_REMAT = True
+UDA_DROP_PATH_RATE = 0.1
+UDA_DROPOUT_RATIO = 0.1
+UDA_BASE_LR = 6e-4
+UDA_WEIGHT_DECAY = 0.01
+UDA_POLY_POWER = 1.0
+UDA_BACKBONE_LR_FACTOR = 0.1
 
 
 def _resolve_device(device) -> torch.device:
@@ -115,3 +139,64 @@ def refign_align_refine(net: AlignmentNet, logits_trg: torch.Tensor,
                                       images_trg)
         probs = refine(logits_trg, warped, mask, cert, gamma)
     return probs, mask, cert
+
+
+def build_uda_trainer(model_type: str = "mit_b5",
+                      cfg: Optional[UDAConfig] = None, device="cuda",
+                      seed: int = 0, channels: int = 256,
+                      max_steps: int = 40000,
+                      warmup_iters: int = 1500) -> UDATrainer:
+    """A UDA trainer on ``device`` with weights drawn from ``seed``.
+
+    The settings are those of ``refign_hrda_star.yaml``: MiT-B5 with remat
+    and drop path 0.1, DAFormer (256) and the SegFormer scale attention
+    (256) with dropout 0.1, HRDA with output stride 4 and HR loss weight
+    0.1, Refign with the frozen VGG-16 + UAWarpC alignment network
+    (``build_alignment``, in the compute dtype), adapt-to-reference with
+    gamma 0.25, the ImageNet feature distance, DACS with colour jitter
+    0.2 / 0.2 and blur, AdamW at 6e-4 with weight decay 0.01 and a
+    backbone factor of 0.1, warmup 1500 -> poly(1.0) over 40,000 steps,
+    bf16 compute on fp32 masters.  ``cfg`` (default ``REFIGN_HRDA_STAR``)
+    also sets the class count of the heads."""
+    cfg = REFIGN_HRDA_STAR if cfg is None else cfg
+    dev = _resolve_device(device)
+    backbone = MixVisionTransformer(model_type=model_type,
+                                    drop_path_rate=UDA_DROP_PATH_RATE,
+                                    remat=UDA_REMAT)
+    dims = backbone.embed_dims
+    head = DAFormerHead(cfg.num_classes, in_channels=dims, channels=channels,
+                        embed_dims=channels, dropout_ratio=UDA_DROPOUT_RATIO)
+    scale_attention = (SegFormerHead(cfg.num_classes, in_channels=dims,
+                                     channels=channels,
+                                     dropout_ratio=UDA_DROPOUT_RATIO)
+                       if cfg.use_hrda else None)
+    gen = torch.Generator().manual_seed(seed)
+    backbone.init_weights(gen)
+    head.init_weights(gen)
+    if scale_attention is not None:
+        scale_attention.init_weights(gen)
+    student = Segmentor(backbone, head, scale_attention,
+                        hrda_output_stride=cfg.hrda_output_stride).to(dev)
+    opt, sched = make_uda_optimizer(
+        student, UDA_BASE_LR, UDA_WEIGHT_DECAY, max_steps,
+        backbone_lr_factor=UDA_BACKBONE_LR_FACTOR, warmup_iters=warmup_iters,
+        power=UDA_POLY_POWER)
+    state = init_uda_state(student, opt, sched, cfg.enable_fdist)
+    align_net = None
+    if cfg.use_refign and cfg.use_align:
+        align_net = build_alignment(dtype=cfg.dtype, device=dev,
+                                    seed=seed + 1)
+    return UDATrainer(cfg, state, align_net, torch.Generator(device=dev))
+
+
+def uda_train_step(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One UDA step in place on ``trainer``.  ``batch``: ``image_src``,
+    ``image_trg``, ``image_ref`` (B, H, W, 3) normalised images (or uint8
+    with ``device_normalize``) and ``semantic_src`` (B, H, W) labels, moved
+    to the trainer's device; ``generator``: a CPU generator for the step's
+    random draws.  Returns the losses as 0-d tensors on the device."""
+    dev = next(trainer.state.student.parameters()).device
+    batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+    draws = draw_step(trainer.cfg, batch, generator)
+    return train_step(trainer, batch, draws)

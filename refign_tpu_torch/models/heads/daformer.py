@@ -3,11 +3,13 @@
 
 Per-stage MLP embeddings upsampled to the 1/4 grid, concatenated, fused by
 a depthwise-separable ASPP (dilations 1, 6, 12, 18, no image pool), then a
-1x1 classifier.
+1x1 classifier.  In train mode its BatchNorms use batch statistics, and the
+dropout before the classifier draws from the generator passed to
+``forward`` (none: off).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -57,7 +59,8 @@ class DAFormerHead(nn.Module):
         self.dropout = Dropout2d(dropout_ratio)
         self.conv_seg = conv2d(channels, num_classes, kernel_size=1)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         feats = transform_inputs(inputs, self.in_index, self.input_transform)
         size = feats[0].shape[1:3]
         embedded = []
@@ -67,7 +70,7 @@ class DAFormerHead(nn.Module):
                 e = interpolate(e, size, mode="bilinear", align_corners=False)
             embedded.append(e)
         x = self.fuse_layer(torch.cat(embedded, dim=-1))
-        return self.conv_seg(self.dropout(x))
+        return self.conv_seg(self.dropout(x, generator))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """mmseg init: ConvBNReLU kaiming fan_out, MLP embeds torch default,

@@ -4,11 +4,12 @@
 Each stage feature is linearly embedded, bilinearly upsampled
 (align_corners=False) to the 1/4 grid, concatenated in [c4, c3, c2, c1]
 order, fused by a 1x1 ConvBNReLU and classified 1x1.  HRDA uses it as its
-scale-attention head.
+scale-attention head.  Train mode as in the DAFormer head: batch-statistics
+BN, dropout from the generator passed to ``forward``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -39,7 +40,8 @@ class SegFormerHead(nn.Module):
         self.dropout = Dropout2d(dropout_ratio)
         self.linear_pred = conv2d(channels, num_classes, kernel_size=1)
 
-    def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c1, c2, c3, c4 = transform_inputs(inputs, self.in_index,
                                           self.input_transform)
         size = c1.shape[1:3]
@@ -55,7 +57,7 @@ class SegFormerHead(nn.Module):
                        embed_up(self.linear_c2, c2),
                        embed_up(self.linear_c1, c1)], dim=-1)
         x = self.linear_fuse(x)
-        return self.linear_pred(self.dropout(x))
+        return self.linear_pred(self.dropout(x, generator))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """mmseg init: MLP embeds torch default, fuse conv kaiming fan_out,

@@ -4,7 +4,12 @@ Counterpart of ``refign_tpu/models/mix_transformer.py`` (forward path): a
 4-stage hierarchical ViT with overlapping patch embeddings (7/4, then 3/2),
 spatial-reduction attention (sr_ratios 8/4/2/1) through kernel K1
 (``ops/attention.py``), and a Mix-FFN whose depthwise 3x3 conv + GELU is
-kernel K2 (``ops/dwconv.py``).
+kernel K2 (``ops/dwconv.py``).  In train mode the blocks' stochastic depth
+draws from the generator passed to ``forward``, and ``remat=True`` recomputes
+each block in the backward (``torch.utils.checkpoint``, non-reentrant; the
+JAX ``nn.remat`` of ``refign_tpu/models/mix_transformer.py:198-259``).  The
+drop-path draws are made before a block is checkpointed and handed to it,
+so the recompute applies the same ones.
 
 Parameter names follow the reference's torch keys, so the JAX package's
 ``convert_state_dict`` maps this module's ``state_dict`` onto its flax tree:
@@ -18,6 +23,8 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..nn.layers import (DropPath, Linear, TorchConv, TorchLayerNorm,
                          conv2d, kaiming_normal_fanout_, normal_)
@@ -116,9 +123,31 @@ class Block(nn.Module):
         self.norm2 = TorchLayerNorm(dim, eps=1e-6)
         self.mlp = MixFFN(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor, keep1: Optional[torch.Tensor] = None,
+                keep2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block with the drop-path keep draws of its two branches
+        (None: identity)."""
+        x = x + self.drop_path.apply_mask(self.attn(self.norm1(x)), keep1)
+        return x + self.drop_path.apply_mask(self.mlp(self.norm2(x)), keep2)
+
+    def masks(self, x: torch.Tensor, generator: Optional[torch.Generator]):
+        return (self.drop_path.mask(x, generator),
+                self.drop_path.mask(x, generator))
+
+
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` recomputed in the backward (non-reentrant
+    checkpoint).  The module's current parameters, which under
+    ``torch.func.functional_call`` are the caller's cast copies, are passed
+    as inputs, so the recompute, which runs after that call has returned,
+    uses the same tensors and their gradients reach the caller."""
+    names, values = zip(*module.named_parameters())
+    n = len(args)
+
+    def run(*a):
+        return functional_call(module, dict(zip(names, a[n:])), a[:n])
+
+    return checkpoint(run, *args, *values, use_reentrant=False)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -137,14 +166,17 @@ class OverlapPatchEmbed(nn.Module):
 
 class MixVisionTransformer(nn.Module):
     """4-stage MiT backbone; returns 4 NHWC feature maps at 1/4, 1/8, 1/16
-    and 1/32 resolution."""
+    and 1/32 resolution.  ``remat`` recomputes each block in the backward
+    where grad is enabled."""
 
     def __init__(self, model_type: str = "mit_b5",
                  drop_path_rate: float = 0.1,
-                 qk_scale: Optional[float] = None, in_chans: int = 3):
+                 qk_scale: Optional[float] = None, in_chans: int = 3,
+                 remat: bool = False):
         super().__init__()
         cfg = ARCH_SETTINGS[model_type]
         self.model_type = model_type
+        self.remat = remat
         self.embed_dims = list(cfg["embed_dims"])
         depths = cfg["depths"]
         dpr = torch.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -163,12 +195,16 @@ class MixVisionTransformer(nn.Module):
             cur += depths[s]
             prev = dim
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        remat = self.remat and torch.is_grad_enabled()
         outs = []
         for s in range(1, 5):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
-                x = blk(x)
+                keeps = blk.masks(x, generator)
+                x = remat_call(blk, x, *keeps) if remat else blk(x, *keeps)
             x = getattr(self, f"norm{s}")(x)
             outs.append(x)
         return outs

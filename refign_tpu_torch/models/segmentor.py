@@ -1,15 +1,23 @@
 """Encoder-decoder segmentor with HRDA multi-resolution inference, NHWC
-(counterpart of ``refign_tpu/models/segmentor.py``, eval path).
+(counterpart of ``refign_tpu/models/segmentor.py``).
 
 * plain path: head(backbone(x)) + bilinear upsample;
 * HRDA eval: one LR pass of the half-resolution image plus the HR slide
   crops (crop = LR size, stride = crop/2), all in ONE backbone batch
   ([LR rows, then crops], crop-major), folded with a visit-count average and
   fused by the sigmoid scale attention;
+* HRDA train: the LR pass of the half-resolution image and ONE HR crop
+  at a host-side integer offset in one backbone batch, the scale attention
+  masked to the crop, the HR logits inserted at the offset;
 * sliding-window inference: every crop of the grid in one batch, then
   folded back.
 
-``hrda_train`` belongs to the training slice.
+BatchNorm follows the module's mode (batch statistics in train mode, as
+the EMA teacher's ``whole`` runs them); dropout and drop-path draw from a
+generator where one is passed (``logits``, ``logits_and_features``,
+``hrda_train``) and are off in ``whole``.  ``forward(x, method=...)``
+dispatches to a method, so ``torch.func.functional_call`` can run any of
+them on other parameters.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import interpolate
@@ -70,8 +79,65 @@ class Segmentor(nn.Module):
         self.scale_attention = scale_attention
         self.hrda_output_stride = hrda_output_stride
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.backbone(x))
+    def logits(self, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(self.backbone(x, generator), generator)
+
+    def logits_and_features(self, x: torch.Tensor,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Head logits at the head's resolution and the backbone features
+        (``refign_tpu/models/segmentor.py:103-108``)."""
+        feats = self.backbone(x, generator)
+        return self.head(feats, generator), feats
+
+    def hrda_train(self, x: torch.Tensor, crop_offset: Tuple[int, int],
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
+        """HRDA training forward (``refign_tpu/models/segmentor.py:
+        112-168``).  ``crop_offset`` (oy, ox): host integers, each divisible
+        by 2*hrda_output_stride, in [0, H/2].  Returns the fused logits
+        (B, H/os, W/os, C), the HR logits upsampled to the crop
+        (B, H/2, W/2, C) and the LR features."""
+        os_ = self.hrda_output_stride
+        B, H, W, _ = x.shape
+        ch, cw = H // 2, W // 2
+        oy, ox = int(crop_offset[0]), int(crop_offset[1])
+        if oy % (2 * os_) or ox % (2 * os_) or not (
+                0 <= oy <= H - ch and 0 <= ox <= W - cw):
+            raise ValueError(f"crop offset {(oy, ox)} must be divisible by "
+                             f"{2 * os_} and keep the {ch}x{cw} crop inside")
+        lr_x = interpolate(x, (ch, cw), mode="bilinear", align_corners=False)
+        hr_x = x[:, oy:oy + ch, ox:ox + cw]
+        both_feats = self.backbone(torch.cat([lr_x, hr_x], dim=0),
+                                   generator)
+        lr_feats = [f[:B] for f in both_feats]
+        both_seg = self.head(both_feats, generator)
+        lr_seg, hr_seg = both_seg[:B], both_seg[B:]
+
+        att = torch.sigmoid(self.scale_attention(lr_feats, generator))
+        # attention only inside the crop, on the LR grid (scale 2*os)
+        gh, gw = lr_seg.shape[1:3]
+        y1, x1 = oy // (2 * os_), ox // (2 * os_)
+        y2, x2 = y1 + ch // (2 * os_), x1 + cw // (2 * os_)
+        mask = torch.zeros((1, gh, gw, 1), dtype=att.dtype, device=att.device)
+        mask[:, y1:y2, x1:x2] = 1.0
+        att = att * mask
+
+        lr_seg = (1.0 - att) * lr_seg
+        up_lr_seg = interpolate(lr_seg, (2 * gh, 2 * gw), mode="bilinear",
+                                align_corners=False)
+        up_att = interpolate(att, (2 * gh, 2 * gw), mode="bilinear",
+                             align_corners=False)
+        # the HR logits placed at the crop on the fused grid, zero elsewhere
+        hh, hw = hr_seg.shape[1:3]
+        ty, tx = oy // os_, ox // os_
+        inserted = F.pad(hr_seg.to(up_lr_seg.dtype),
+                         (0, 0, tx, 2 * gw - tx - hw, ty, 2 * gh - ty - hh))
+        fused = up_att * inserted + up_lr_seg
+        hr_logits = interpolate(hr_seg, (ch, cw), mode="bilinear",
+                                align_corners=False)
+        return fused, hr_logits, lr_feats
 
     def whole(self, x: torch.Tensor) -> torch.Tensor:
         """Eval logits upsampled to the input resolution."""
@@ -109,8 +175,9 @@ class Segmentor(nn.Module):
         hr_seg = fold_crops(crop_seg, scaled_boxes, (H // os_, W // os_), B)
         return up_att * hr_seg + up_lr_seg
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.whole(x)
+    def forward(self, x: torch.Tensor, *args, method: str = "whole",
+                **kwargs):
+        return getattr(self, method)(x, *args, **kwargs)
 
 
 def slide_inference(whole_fn: Callable[[torch.Tensor], torch.Tensor],

@@ -9,10 +9,15 @@ Numerics kept from the JAX package:
 
 * ``TorchLayerNorm`` on bf16 folds the whole transform into one fp32 FMA
   (``y = x*s + t``), as ``refign_tpu/nn/layers.py:126-136`` does.
-* ``TorchBatchNorm`` in eval keeps its running statistics in fp32 and, on
-  bf16 input, applies the fp32 fold ``y = x*a + b``
-  (``refign_tpu/nn/layers.py:248-260``).  Train mode, ``groups > 1`` and
-  sync-BN belong to the training slice and raise here.
+* ``TorchBatchNorm`` keeps its running statistics in fp32 and, on bf16
+  input, applies the fp32 fold ``y = x*a + b``
+  (``refign_tpu/nn/layers.py:248-260``).  In train mode it normalises with
+  the batch statistics (biased variance as E[x^2]-E[x]^2) and updates the
+  running ones with the unbiased variance; ``groups > 1`` and sync-BN are
+  not ported.
+* ``DropPath`` and ``Dropout2d`` draw from an explicit ``torch.Generator``
+  and are the identity without one, as the JAX modules are without an rng
+  (``deterministic``).
 * ``gelu`` is the exact erf form; ``leaky_relu`` has slope 0.1, as in
   the matching modules.
 """
@@ -126,28 +131,55 @@ class TorchLayerNorm(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d on NHWC (``refign_tpu/nn/layers.py:144-264``,
-    running-statistics branch).  Running stats stay fp32 whatever the
-    parameter dtype; train mode belongs to the training slice."""
+    """BatchNorm2d on NHWC (``refign_tpu/nn/layers.py:144-264``, the
+    running-statistics branch in eval and the ungrouped batch-statistics
+    branch in train mode).  Running stats stay fp32 whatever the parameter
+    dtype.  In train mode the statistics are over (N, H, W) in fp32, the
+    variance E[x^2]-E[x]^2, and the running stats take
+    ``(1-m)*ra + m*stat`` with the unbiased variance; ``update_stats =
+    False`` keeps them as they are (the EMA teacher's batch-statistics
+    forward, whose updates the JAX step discards)."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _batch_stats(self, x32: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = x32.numel() // x32.shape[-1]
+        if n < 2:
+            # torch.nn.BatchNorm2d's rule: one value has no variance
+            raise ValueError(f"BatchNorm in train mode needs more than one "
+                             f"value per channel, got input {tuple(x32.shape)}")
+        axes = tuple(range(x32.dim() - 1))
+        mean = x32.mean(axes)
+        var = (x32 * x32).mean(axes) - mean.square()
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                unbiased = var * (n / (n - 1))
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm comes with the training slice; "
-                "call .eval() for inference")
-        mean = self.running_mean.float()
-        var = self.running_var.float()
+            mean, var = self._batch_stats(x32)
+        else:
+            mean = self.running_mean.float()
+            var = self.running_var.float()
         w = self.weight.float()
         b = self.bias.float()
-        x32 = x.float()
         if x.dtype == torch.bfloat16:
             a = w * torch.rsqrt(var + self.eps)
             return (x32 * a + (b - mean * a)).to(x.dtype)
@@ -285,31 +317,61 @@ class MLPEmbed(nn.Module):
         torch_default_init_(self.proj.weight, self.proj.bias, generator)
 
 
+def _keep_mask(x: torch.Tensor, shape, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """0/1 keep draws with probability 1 - rate, in x's dtype."""
+    if generator is None:
+        raise ValueError(f"dropout at rate {rate} in train mode draws from "
+                         f"an explicit generator and none was passed; put "
+                         f"the module in eval mode to turn it off")
+    keep = torch.empty(shape, device=x.device)
+    return keep.bernoulli_(1.0 - rate, generator=generator).to(x.dtype)
+
+
 class DropPath(nn.Module):
-    """Per-sample stochastic depth: identity in eval.  Its train-mode draw
-    comes with the training slice."""
+    """Per-sample stochastic depth (``refign_tpu/nn/layers.py:469-481``):
+    ``x * keep / keep_prob`` with one keep draw per sample from the
+    generator passed, in train mode (where a rate > 0 needs one); the
+    identity in eval mode."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
         self.drop_prob = drop_prob
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.drop_prob > 0.0:
-            raise NotImplementedError(
-                "train-mode DropPath comes with the training slice")
-        return x
+    def mask(self, x: torch.Tensor,
+             generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The keep draws for ``x`` ((B, 1, ..., 1), x's dtype), or None
+        where the path is the identity."""
+        if not self.training or self.drop_prob == 0.0:
+            return None
+        return _keep_mask(x, (x.shape[0],) + (1,) * (x.dim() - 1),
+                          self.drop_prob, generator)
+
+    def apply_mask(self, x: torch.Tensor,
+                   keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None:
+            return x
+        return x * keep / (1.0 - self.drop_prob)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.apply_mask(x, self.mask(x, generator))
 
 
 class Dropout2d(nn.Module):
-    """Channel-wise dropout on NHWC: identity in eval.  Its train-mode draw
-    comes with the training slice."""
+    """Channel-wise dropout on NHWC (``refign_tpu/nn/layers.py:484-496``):
+    one keep draw per (sample, channel) from the generator passed,
+    ``x * keep / keep_prob``, in train mode (where a rate > 0 needs one);
+    the identity in eval mode."""
 
     def __init__(self, rate: float = 0.1):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "train-mode Dropout2d comes with the training slice")
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = _keep_mask(x, (x.shape[0], 1, 1, x.shape[-1]), self.rate,
+                          generator)
+        return x * keep / (1.0 - self.rate)

@@ -3,8 +3,11 @@
 Counterpart of ``refign_tpu/ops/attention.py``.  ``sra_attention(q, k, v,
 scale)`` keeps the JAX signature: q (B, N, H, D), k/v (B, M, H, D) ->
 (B, N, H, D) in q's dtype.  On a CUDA tensor it launches the hand-written
-kernel ``csrc/sra_attention.cu`` (forward only); on a CPU tensor it runs
-:func:`sra_attention_reference`.
+kernel ``csrc/sra_attention.cu``, and where q, k or v requires grad it does
+so inside a ``torch.autograd.Function`` whose backward launches the
+hand-written ``csrc/sra_attention_backward.cu`` (dq, dk, dv; counted by
+``sra_attention_backward.launches``); on a CPU tensor it runs
+:func:`sra_attention_reference`, whose autograd is the plain backward.
 
 Numerics follow the TPU kernel (``_make_kernel``): fp32 logits with the
 true row max, fp32 softmax and products.  The JAX package's default bf16
@@ -14,16 +17,25 @@ scales the fp32 logits instead.  On bf16 tensors the kernel runs both
 products on the tensor cores, the fp32 probabilities entering P V as a
 bf16 hi + lo pair (~16 bits); ``tests/test_torch_attention_numerics.py``
 emulates that arithmetic and holds it to the bf16 limit.
+
+The backward (the JAX ``_attn_fused_bwd``: the VJP of the fp32 einsum)
+recomputes the softmax in fp32 from q and k, keeps P and dS in fp32 and
+rounds dq, dk and dv once to the input dtype, as autograd of the plain
+version does.  k and v may be the two halves of one kv projection: the
+backward returns dk and dv as separate tensors and autograd adds them into
+the kv gradient.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["sra_attention", "sra_attention_reference", "MAX_KV", "HEAD_DIM"]
+__all__ = ["sra_attention", "sra_attention_backward",
+           "sra_attention_reference", "MAX_KV", "HEAD_DIM"]
 
 HEAD_DIM = 64
 # the JAX kernel's gate (refign_tpu/ops/attention.py:40); the CUDA kernel
@@ -53,17 +65,23 @@ def _lib():
     return fn
 
 
+def _bwd_lib():
+    lib = _build.load("sra_attention_backward")
+    fn = lib.sra_attention_backward
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 21
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _aligned(t: torch.Tensor) -> bool:
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in t.stride()[:-1]))
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float) -> torch.Tensor:
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "sra_attention on CUDA is forward-only; its backward kernel "
-            "comes with the training slice")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"sra_attention kernel takes fp32 or bf16, got "
                         f"{q.dtype}")
@@ -84,6 +102,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("sra_attention needs N >= 1 and M >= 1")
     if M > MAX_KV:
         raise ValueError(f"sra_attention kernel takes M <= {MAX_KV}, got {M}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    B, N, H, D = q.shape
+    M = k.shape[1]
     # the kernel reads 16-byte vectors along the head dim
     q, k, v = (t if _aligned(t) else t.contiguous().clone()
                for t in (q, k, v))
@@ -102,13 +126,82 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def sra_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor, scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """dq, dk, dv of ``sra_attention(q, k, v, scale)`` for the output
+    gradient ``do`` (B, N, H, D), through the backward kernel
+    (``launches`` counts each call that launches it).  CUDA only; the
+    inputs go through their strides."""
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype}")
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v, do))
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, M, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    # the dk/dv kernel splits N until it has two waves of blocks at two
+    # blocks an SM (84 KB of shared memory a block)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    ntiles, mtiles = -(-N // 64), -(-M // 64)
+    nsplit = max(1, min(ntiles, -(-4 * sms // (mtiles * H * B))))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.empty(3 * B * H * N, **f32)
+    part = torch.empty(2 * nsplit * B * H * M * D, **f32)
+    fn = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats.data_ptr(), part.data_ptr(),
+                 int(q.dtype == torch.bfloat16), B, N, M, H, nsplit,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3],
+                 *dv.stride()[:3], float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"sra_attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    sra_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+sra_attention_backward.launches = 0
+
+
+class _SRAttention(torch.autograd.Function):
+    """K1 forward and its backward kernel, for CUDA inputs that require
+    grad (the JAX ``_attn_fused`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = sra_attention_backward(q, k, v, do.contiguous(),
+                                            ctx.scale)
+        return dq, dk, dv, None
+
+
 def sra_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """Multi-head SRA attention: q (B, N, H, D), k/v (B, M, H, D) ->
     (B, N, H, D).  CUDA tensors launch the kernel (``launches`` counts
-    each launch); CPU tensors take the plain version."""
+    each launch), and its backward kernel where an input requires grad;
+    CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return sra_attention_reference(q, k, v, scale)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _SRAttention.apply(q, k, v, scale)
     return _launch(q, k, v, scale)
 
 

@@ -1,2 +1,2 @@
-"""Refign UDA pieces (counterpart of ``refign_tpu/uda``): the align step and
-the pseudo-label refinement."""
+"""Refign UDA training (counterpart of ``refign_tpu/uda``): the train step,
+DACS, the losses, the align step and the pseudo-label refinement."""

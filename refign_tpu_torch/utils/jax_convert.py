@@ -10,10 +10,15 @@ package).  Each key of the module's ``state_dict`` names its flax leaf:
   ``mlp.fc1``/``mlp.fc2`` the flax kernel is a (1, 1, in, out) conv kernel;
 * ``weight`` of rank 1 -> ``scale`` (LayerNorm, BatchNorm);
 * ``running_mean``/``running_var`` -> ``batch_stats`` ``mean``/``var``.
+
+``load_uda_state`` carries a whole JAX ``UDATrainState`` across (student,
+teacher, ImageNet copy, step, and the optax Adam moments and count into the
+torch AdamW state); the optax state is read by its field names, so nothing
+of optax is imported.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +59,46 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+def _leaf(tree, path, what: str):
+    node = tree
+    for p in path:
+        if not isinstance(node, Mapping) or p not in node:
+            raise KeyError(f"{what}: flax {'/'.join(path)} missing")
+        node = node[p]
+    return node
+
+
+def _as_torch(key: str, node, t: torch.Tensor) -> torch.Tensor:
+    """The flax leaf of state_dict ``key`` in the layout and dtype of
+    ``t``."""
+    arr = np.asarray(node)
+    if key.endswith(".weight") and t.dim() == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    elif key.endswith(".weight") and t.dim() == 2:
+        if any(key.endswith(s + ".weight")
+               for s in DENSE_AS_CONV1X1_SUFFIXES):
+            arr = arr.reshape(arr.shape[-2:])
+        arr = arr.T
+    if tuple(arr.shape) != tuple(t.shape):
+        raise ValueError(f"{key}: shape {tuple(arr.shape)} from flax, "
+                         f"{tuple(t.shape)} in the module")
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(t.dtype)
+
+
+def params_like(module: nn.Module, tree: Mapping[str, Any]
+                ) -> Dict[str, torch.Tensor]:
+    """A params-shaped flax tree (gradients, Adam moments) on ``module``'s
+    parameter names, in their layouts.  Leaves that are not arrays (optax's
+    masked-out nodes) are skipped."""
+    out = {}
+    for key, p in module.named_parameters():
+        _, path = flax_location(key, p.dim())
+        node = _leaf(tree, path, key)
+        if hasattr(node, "shape"):
+            out[key] = _as_torch(key, node, p.detach())
+    return out
+
+
 def load_jax_variables(module: nn.Module,
                        variables: Mapping[str, Any]) -> nn.Module:
     """Fill ``module``'s state_dict from ``{"params": ..., "batch_stats":
@@ -64,24 +109,7 @@ def load_jax_variables(module: nn.Module,
     new = {}
     for key, t in module.state_dict().items():
         coll, path = flax_location(key, t.dim())
-        node = variables[coll]
-        for p in path:
-            if p not in node:
-                raise KeyError(f"{key}: flax {coll}/{'/'.join(path)} missing")
-            node = node[p]
-        arr = np.asarray(node)
-        if key.endswith(".weight") and t.dim() == 4:
-            arr = arr.transpose(3, 2, 0, 1)
-        elif key.endswith(".weight") and t.dim() == 2:
-            if any(key.endswith(s + ".weight")
-                   for s in DENSE_AS_CONV1X1_SUFFIXES):
-                arr = arr.reshape(arr.shape[-2:])
-            arr = arr.T
-        if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"{key}: shape {tuple(arr.shape)} from flax, "
-                             f"{tuple(t.shape)} in the module")
-        new[key] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-            t.dtype)
+        new[key] = _as_torch(key, _leaf(variables[coll], path, key), t)
     n_flax = sum(_count_leaves(variables.get(c, {}))
                  for c in ("params", "batch_stats"))
     if n_flax != len(new):
@@ -100,3 +128,56 @@ def load_alignment_params(net: nn.Module,
     load_jax_variables(net.head, {"params": align_params["head"],
                                   "batch_stats": align_params["head_stats"]})
     return net
+
+
+def _adam_states(opt_state):
+    """The optax ``ScaleByAdamState`` nodes (fields count, mu, nu) inside an
+    optax state, found by their field names."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return [opt_state]
+    if isinstance(opt_state, Mapping):
+        children = list(opt_state.values())
+    elif isinstance(opt_state, (tuple, list)):
+        children = list(opt_state)
+    else:
+        return []
+    return [s for c in children for s in _adam_states(c)]
+
+
+def load_uda_state(trainer, state) -> None:
+    """Carry a JAX ``UDATrainState`` (``refign_tpu/uda/trainer.py:77-85``)
+    into a port ``UDATrainer``: the student's and the teacher's parameters
+    and BatchNorm statistics, the ImageNet copy's parameters, the step, and
+    the AdamW state from the optax Adam moments and count (one
+    ``scale_by_adam`` per parameter group, as ``make_uda_optimizer``
+    chains them)."""
+    ts = trainer.state
+    load_jax_variables(ts.student, {"params": state.params,
+                                    "batch_stats": state.batch_stats or {}})
+    load_jax_variables(ts.teacher, {
+        "params": state.teacher_params,
+        "batch_stats": state.teacher_batch_stats or {}})
+    if ts.imnet is not None:
+        load_jax_variables(ts.imnet, {
+            "params": state.imnet_params,
+            "batch_stats": state.imnet_batch_stats or {}})
+    ts.step = int(np.asarray(state.step))
+    names = {id(p): n for n, p in ts.student.named_parameters()}
+    moments = {}
+    for adam in _adam_states(state.opt_state):
+        count = int(np.asarray(adam.count))
+        mu = params_like(ts.student, adam.mu)
+        nu = params_like(ts.student, adam.nu)
+        for key in mu:
+            moments[key] = (count, mu[key], nu[key])
+    opt = ts.optimizer
+    for group in opt.param_groups:
+        for p in group["params"]:
+            key = names[id(p)]
+            if key not in moments:
+                raise KeyError(f"{key}: no Adam moments in the optax state")
+            count, mu, nu = moments[key]
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu.to(p.device, p.dtype),
+                "exp_avg_sq": nu.to(p.device, p.dtype)}

@@ -12,7 +12,12 @@ W and C ragged around the tile and the 64-channel slice, both weight
 layouts, the scalar K2 path (C not a multiple of 8), K3's raw and fused
 modes for both input and both output dtypes over both of its tile shapes,
 the NCHW-strided source and misaligned inputs, the launch counters, the
-absence of per-call copies and the wrappers' refusals.  Tolerances: a bf16
+absence of per-call copies and the wrappers' refusals; and the K1 and K2
+backward kernels through autograd (inputs that require grad on CUDA launch
+them) against autograd of the fp32 plain versions, over ragged shapes,
+strided k/v, head-strided q and both weight layouts, within 3e-5 of each
+gradient's largest |ref| (fp32 sums over many terms in another order),
+plus 2^-8*|ref| in bf16.  Tolerances: a bf16
 kernel output within 2^-8*|ref| + 1e-4 of the fp32 plain version on the
 same inputs (one bf16 rounding plus summation order); fp32 within 1e-5;
 K3 (fp32 sums of unit-norm features) within 1e-5, and its fused bf16
@@ -24,11 +29,13 @@ import torch
 from refign_tpu_torch import full_fp32_precision
 from refign_tpu_torch.ops import _build
 from refign_tpu_torch.ops.attention import (sra_attention,
+                                            sra_attention_backward,
                                             sra_attention_reference)
 from refign_tpu_torch.ops.correlation import (
     local_correlation, local_correlation_reference,
     local_correlation_relu_l2norm, local_correlation_relu_l2norm_reference)
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                         dwconv3x3_gelu_backward,
                                          dwconv3x3_gelu_reference)
 
 pytestmark = pytest.mark.cuda
@@ -126,8 +133,8 @@ def test_attention_kernel_misaligned_inputs(gen, dtype):
 def test_attention_kernel_refusals(gen):
     q = torch.randn(1, 8, 1, 64, device="cuda", requires_grad=True)
     k = torch.randn(1, 4, 1, 64, device="cuda")
-    with pytest.raises(NotImplementedError):
-        sra_attention(q, k, k, 1.0)
+    with pytest.raises(TypeError):  # the grad path takes the same checks
+        sra_attention(q.half(), k.half(), k.half(), 1.0)
     with pytest.raises(ValueError):
         big = torch.zeros(1, 4097, 1, 64, device="cuda")
         sra_attention(q.detach(), big, big, 1.0)
@@ -195,8 +202,9 @@ def test_dwconv_kernel_refusals(gen):
     b = torch.randn(4, device="cuda")
     with pytest.raises(ValueError):
         dwconv3x3_gelu(x.permute(0, 2, 3, 1), w, b)  # not NHWC-contiguous
-    with pytest.raises(NotImplementedError):
-        dwconv3x3_gelu(x[..., :4].contiguous().requires_grad_(), w, b)
+    with pytest.raises(ValueError):  # the grad path takes the same checks
+        dwconv3x3_gelu(x[..., :4].contiguous().requires_grad_(), w[..., :2],
+                       b[:2])
 
 
 def _unit_features(gen, B, H, W, C, dtype):
@@ -342,3 +350,95 @@ def test_local_correlation_kernel_refusals(gen):
         local_correlation_relu_l2norm(t, t.clone().requires_grad_(), 9)
     with pytest.raises(TypeError):
         local_correlation_relu_l2norm(t, t, 9, out_dtype=torch.float16)
+
+
+def _grad_close(got, ref, dtype):
+    """A backward kernel's gradient against the fp32 plain one."""
+    assert got.dtype == dtype and got.shape == ref.shape
+    err = (got.float() - ref).abs()
+    lim = 3e-5 * ref.abs().max() + (2.0 ** -8 * ref.abs()
+                                    if dtype == torch.bfloat16 else 0.0)
+    assert (err <= lim).all(), err.max()
+
+
+def _ref_grads(fn, inputs, g):
+    ref_in = [t.detach().float().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*ref_in), ref_in, g.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,M,H", [(1, 1, 1), (63, 17, 2), (64, 64, 1),
+                                   (130, 65, 3), (1000, 256, 5),
+                                   (4100, 256, 1), (200, 300, 2)])
+def test_attention_backward_through_autograd(gen, dtype, N, M, H):
+    """q and one kv tensor require grad; the backward kernel fills both
+    (dk and dv land in the two halves of the kv gradient)."""
+    q = torch.randn(2, N, H, 64, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(2, M, 2, H, 64, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(2, N, H, 64, generator=gen, device="cuda").to(dtype)
+    q.requires_grad_()
+    kv.requires_grad_()
+    fwd, bwd = sra_attention.launches, sra_attention_backward.launches
+    out = sra_attention(q, kv[:, :, 0], kv[:, :, 1], 0.125)
+    out.backward(g)
+    assert sra_attention.launches == fwd + 1
+    assert sra_attention_backward.launches == bwd + 1
+    want = _ref_grads(lambda a, b, c: sra_attention_reference(a, b, c, 0.125),
+                      (q, kv[:, :, 0], kv[:, :, 1]), g)
+    _grad_close(q.grad, want[0], dtype)
+    _grad_close(kv.grad[:, :, 0], want[1], dtype)
+    _grad_close(kv.grad[:, :, 1], want[2], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_strided_inputs(gen, dtype):
+    """Head-strided q and dO, k and v from separate tensors, called
+    directly."""
+    base = torch.randn(1, 77, 2, 65, generator=gen, device="cuda").to(dtype)
+    q = base[..., 1:]
+    k = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
+    gb = torch.randn(1, 77, 2, 66, generator=gen, device="cuda").to(dtype)
+    g = gb[..., 2:]
+    got = sra_attention_backward(q, k, v, g, 0.2)
+    want = _ref_grads(lambda a, b, c: sra_attention_reference(a, b, c, 0.2),
+                      (q, k, v), g)
+    for a, b in zip(got, want):
+        _grad_close(a, b, dtype)
+
+
+def test_attention_without_grad_launches_no_backward(gen):
+    q = torch.randn(1, 70, 1, 64, generator=gen, device="cuda",
+                    requires_grad=True)
+    k = torch.randn(1, 17, 1, 64, generator=gen, device="cuda")
+    bwd = sra_attention_backward.launches
+    with torch.no_grad():
+        out = sra_attention(q, k, k, 0.125)
+    assert not out.requires_grad
+    assert sra_attention_backward.launches == bwd
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["oihw", "hwio"])
+@pytest.mark.parametrize("B,S,C", [(1, 1, 8), (2, 7, 13), (2, 33, 40),
+                                   (2, 17, 264), (3, 128, 32)])
+def test_dwconv_backward_through_autograd(gen, dtype, layout, B, S, C):
+    """x, the weight (in either layout, its gradient in the same) and the
+    bias require grad; the backward kernels fill all three."""
+    x = torch.randn(B, S, S + 3, C, generator=gen, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(C, 1, 3, 3, generator=gen, device="cuda")
+         ).to(dtype)
+    if layout == "hwio":
+        w = w.permute(2, 3, 1, 0)
+    b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    g = torch.randn(B, S, S + 3, C, generator=gen, device="cuda").to(dtype)
+    want = _ref_grads(dwconv3x3_gelu_reference, (x, w, b), g)
+    for t in (x, w, b):
+        t.requires_grad_()
+    fwd, bwd = dwconv3x3_gelu.launches, dwconv3x3_gelu_backward.launches
+    dwconv3x3_gelu(x, w, b).backward(g)
+    assert dwconv3x3_gelu.launches == fwd + 1
+    assert dwconv3x3_gelu_backward.launches == bwd + 1
+    assert w.grad.shape == w.shape and w.grad.stride() == w.stride()
+    for t, r in zip((x, w, b), want):
+        _grad_close(t.grad, r, dtype)

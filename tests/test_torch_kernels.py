@@ -21,8 +21,10 @@ from refign_tpu.ops.attention import (fused_small_kv_attention,
                                       sra_attention as jax_sra_attention)
 from refign_tpu.ops.dwconv import dwconv3x3_gelu as jax_dwconv3x3_gelu
 from refign_tpu_torch.ops.attention import (sra_attention,
+                                            sra_attention_backward,
                                             sra_attention_reference)
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                         dwconv3x3_gelu_backward,
                                          dwconv3x3_gelu_reference)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,9 +89,13 @@ def test_attention_off_cpu_launches_or_raises():
     with pytest.raises(ValueError, match="M <= 4096"):
         sra_attention(_meta(1, 8, 1, 64), _meta(1, 4097, 1, 64),
                       _meta(1, 4097, 1, 64), 1.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sra_attention(_meta(1, 8, 1, 64, requires_grad=True),
-                      _meta(1, 4, 1, 64), _meta(1, 4, 1, 64), 1.0)
+    # inputs that require grad take the same checks, before any build
+    with pytest.raises(ValueError, match="head dim"):
+        sra_attention(_meta(1, 8, 1, 32, requires_grad=True),
+                      _meta(1, 4, 1, 32), _meta(1, 4, 1, 32), 1.0)
+    with pytest.raises(ValueError, match="do must match q"):
+        sra_attention_backward(_meta(1, 8, 1, 64), _meta(1, 4, 1, 64),
+                               _meta(1, 4, 1, 64), _meta(1, 7, 1, 64), 1.0)
     with pytest.raises(TypeError):
         sra_attention(*(t.half() for t in (_meta(1, 8, 1, 64),
                                            _meta(1, 4, 1, 64),
@@ -128,8 +134,11 @@ def test_dwconv_wrapper_matches_jax_default_arm(C, monkeypatch):
 
 def test_dwconv_off_cpu_launches_or_raises():
     x, w, b = _meta(1, 5, 5, 16), _meta(3, 3, 1, 16), _meta(16)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        dwconv3x3_gelu(_meta(1, 5, 5, 16, requires_grad=True), w, b)
+    with pytest.raises(ValueError, match="weight"):
+        dwconv3x3_gelu(_meta(1, 5, 5, 16, requires_grad=True),
+                       _meta(3, 3, 1, 8), b)
+    with pytest.raises(ValueError, match="g must match x"):
+        dwconv3x3_gelu_backward(x, w, b, _meta(1, 5, 4, 16))
     with pytest.raises(ValueError, match="weight"):
         dwconv3x3_gelu(x, _meta(3, 3, 1, 8), b)
     with pytest.raises(ValueError, match="contiguous"):

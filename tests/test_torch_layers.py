@@ -98,8 +98,28 @@ def test_batch_norm_eval(bf16):
 
 
 def test_batch_norm_train_mode_raises():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tl.TorchBatchNorm(4).train()(torch.zeros(1, 2, 2, 4))
+    """Train mode raises where a channel has one value (torch's
+    BatchNorm2d rule) and leaves the running statistics as they were; eval
+    mode takes the same input."""
+    x = torch.ones(1, 1, 1, 4)
+    bn = tl.TorchBatchNorm(4)
+    with pytest.raises(ValueError, match="more than one value"):
+        bn.train()(x)
+    assert torch.equal(bn.running_mean, torch.zeros(4))
+    assert torch.equal(bn.running_var, torch.ones(4))
+    assert bn.eval()(x).shape == x.shape
+
+
+def test_batch_norm_train_mode_uses_batch_stats():
+    """Train mode normalises with the batch statistics and updates the
+    running ones (held against the JAX module in
+    tests/test_torch_train_layers.py)."""
+    x = torch.arange(16, dtype=torch.float32).reshape(1, 2, 2, 4)
+    bn = tl.TorchBatchNorm(4).train()
+    y = bn(x)
+    torch.testing.assert_close(y.mean((0, 1, 2)), torch.zeros(4), rtol=0,
+                               atol=1e-6)
+    assert not torch.equal(bn.running_mean, torch.zeros(4))
 
 
 @pytest.mark.parametrize("kind,bf16", [("plain3x3", False),
@@ -145,8 +165,11 @@ def test_gelu_dropout_droppath_eval():
     np.testing.assert_allclose(tl.gelu(x).numpy(), want, rtol=0, atol=1e-6)
     for m in (tl.DropPath(0.3), tl.Dropout2d(0.3)):
         assert m.eval()(x) is x
-        with pytest.raises(NotImplementedError):
+        # train mode draws only from an explicit generator
+        with pytest.raises(ValueError, match="generator"):
             m.train()(x)
+    for m in (tl.DropPath(0.0), tl.Dropout2d(0.0)):
+        assert m.train()(x) is x
 
 
 RESIZE_CASES = [

@@ -17,8 +17,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    PyTorch library call that computes the same function, where there is
    one; and the K1 and K2 backward kernels against autograd of their plain
    versions at the train step's shapes (bf16, fp32) and ragged ones (the
-   plain and library backwards timed by their device time, as autograd's
-   host work outlasts their kernels);
+   kernel, plain and library backwards timed by their device time, as the
+   host work of the wrapper and of autograd outlasts their kernels);
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
@@ -46,8 +46,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 7. each kernel's time per call of its path (K1 and K2 summed over the 52
    launches of a forward, beside SDPA's and cuDNN conv + gelu's sums; K3
    over an align; the backward kernels over the 104 launches of a train
-   step, beside SDPA's and cuDNN's forward + backward), the ``kernels``
-   JSON line, the card line and, last, the result line.
+   step, beside SDPA's and cuDNN's forward + backward and the sums of
+   their first designs), the ``kernels`` JSON line, the card line and,
+   last, the result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -112,6 +113,13 @@ TRAIN_LAUNCHES = {
 ALIGN_B, ALIGN_HW = 4, 1024
 CORR_LEVELS = [(4, 256, 256, 128), (4, 128, 128, 256), (4, 32, 32, 256)]
 CORR_PATCH = 9
+
+# per-step sums (ms, 104 launches each) of the first designs of the
+# backward kernels (K1: fp32 CUDA cores, softmax recomputed in three passes;
+# K2: three kernels through an fp32 g' map), read by this script on an
+# NVIDIA H100 80GB HBM3 at 700 W; phase 7 prints them beside this run's
+FIRST_BACKWARD_STEP_MS = {"sra_attention_backward": 104.4,
+                          "dwconv3x3_gelu_backward": 49.51}
 
 # elementwise bound for a kernel output in bf16 against the fp32 plain
 # version on the same inputs: one bf16 rounding (2^-8 relative) plus fp32
@@ -464,6 +472,7 @@ def phase_backward_kernels():
     import torch
     import torch.nn.functional as F
     from refign_tpu_torch.ops.attention import (sra_attention_backward,
+                                                sra_attention_forward,
                                                 sra_attention_reference)
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu_backward,
                                              dwconv3x3_gelu_reference)
@@ -515,10 +524,13 @@ def phase_backward_kernels():
             (dq_r, dk_r, dv_r), plain = grads_of(
                 lambda a, b_, c: sra_attention_reference(a, b_, c, scale),
                 (q, k, v), g)
-            got = sra_attention_backward(q, k, v, g, scale)
+            # the grad-mode forward's statistics, which the bf16 backward
+            # reads (fp32 has none); the forward is not timed here
+            _, stats = sra_attention_forward(q, k, v, scale, stats=True)
+            got = sra_attention_backward(q, k, v, g, scale, stats)
             refs = (dq_r, dk_r, dv_r)
             kernel = lambda: sra_attention_backward(  # noqa: E731
-                q, k, v, g, scale)
+                q, k, v, g, scale, stats)
             qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
                           for t in (q, k, v))
             gt = g.transpose(1, 2)
@@ -553,21 +565,26 @@ def phase_backward_kernels():
         torch.cuda.synchronize()
         err = max(check_grad(f"{name}{shape} {kind} d{i}", t, r, dtype)
                   for i, (t, r) in enumerate(zip(got, refs)))
-        # the plain and library backwards run through autograd, whose host
-        # work outlasts their kernels at these shapes: their device time
+        # device time of all three: the plain and library backwards run
+        # through autograd, and the kernels' wrapper allocates and checks in
+        # Python, host work that outlasts the kernels at these shapes (the
+        # wrapper's CUDA-event time is logged beside it)
         row = dict(name=name, shape=list(shape), kind=kind, mode="",
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
-                   ms=time_ms(kernel), plain_ms=device_ms(plain),
-                   library_ms=device_ms(library), bound_ms=bnd,
-                   bound_by=bound_by)
+                   ms=device_ms(kernel), wrapper_ms=time_ms(kernel),
+                   plain_ms=device_ms(plain), library_ms=device_ms(library),
+                   bound_ms=bnd, bound_by=bound_by)
+        if not all(row[k] > 0 for k in ("ms", "plain_ms", "library_ms")):
+            raise AssertionError(f"{name}{shape}: the profiler recorded no "
+                                 f"device time")
         row["bound_share"] = bnd / row["ms"]
         rows.append(row)
         log(f"  {name:23s} {kind:6s} {row['dtype']:8s} {str(shape):22s} "
-            f"err {err:.2e}  kernel {row['ms']:.4f} ms  bound "
-            f"{bnd:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
-            f"of it)  plain {row['plain_ms']:.4f} ms  library "
-            f"{row['library_ms']:.4f} ms")
+            f"err {err:.2e}  kernel {row['ms']:.4f} ms (wrapper "
+            f"{row['wrapper_ms']:.4f})  bound {bnd:.4f} ms ({bound_by}, "
+            f"{100 * row['bound_share']:.1f} % of it)  plain "
+            f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms")
         del got, refs, plain, library
     return rows
 
@@ -1103,7 +1120,8 @@ def main() -> int:
         "over their 52 launches in one 1080x1920 HRDA* forward "
         f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
         f"1024^2 align and refine ({align_sec * 1e3:.1f} ms), K1 and K2 "
-        "backward over their 104 launches in one B=4 1024^2 train step "
+        "backward (device time) over their 104 launches in one B=4 1024^2 "
+        "train step "
         f"({train_sec * 1e3:.1f} ms, peak memory {peak:.1f} GiB)")
     raw = [r for r in rows if r["name"] == "local_correlation"
            and r["kind"] == "raw"]
@@ -1116,11 +1134,14 @@ def main() -> int:
             "dwconv3x3_gelu_backward": "cuDNN conv + gelu backward"}
     for k in kernels:
         lib = libs.get(k["name"])
+        first = FIRST_BACKWARD_STEP_MS.get(k["name"])
         log(f"  {k['name']:23s} {k['ms']:.3f} ms per call of its path, "
             f"bound {k['bound_ms']:.4f} ms ({100 * k['bound_share']:.1f} % "
             "of it)" + ("" if lib is None else
                         f", {lib} {k['library_ms']:.3f} ms "
-                        f"({k['ms'] / k['library_ms']:.2f}x)"))
+                        f"({k['ms'] / k['library_ms']:.2f}x)")
+            + ("" if first is None else
+               f", first design {first:.2f} ms ({first / k['ms']:.2f}x)"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Time K1, K2 and K3 of two checkouts with one timer on one NVIDIA card.
+"""Time the kernels of two checkouts with one timer on one NVIDIA card.
 
     python3 kernel_ab.py OTHER_CHECKOUT
 
 Builds ``refign_tpu_torch/csrc/{sra_attention,dwconv3x3_gelu,
-local_correlation}.cu`` of this checkout and of OTHER_CHECKOUT (for example
-a ``git archive`` of the parent commit) with the same nvcc flags, calls
-each kernel straight through its C entry point (no Python wrapper, so no
-host time) at the shapes of ``chip_smoke.py`` (K1, K2: the four MiT-B5
-stages; K3: the three UAWarpC levels, raw fp32 mode, with the source as
-the NHWC view of an NCHW tensor), checks each output against the plain
-version within ``chip_smoke.py``'s limit (bf16 for K1 and K2, 1e-5 for
-K3), and prints the times of the runs other, this, this, other, then the
-best of each checkout per shape.  K3's fused mode with bf16 output (what
-the UAWarpC head launches) is checked and timed in the same loop, for
-this checkout alone.  Sources whose K2 entry point predates
-the weight strides get the tap-major (9, C) copy of the weights that their
-wrapper made; sources whose K3 entry point predates the fused mode are
-called without its two mode arguments.
+local_correlation,sra_attention_backward,dwconv3x3_gelu_backward}.cu`` of
+this checkout and of OTHER_CHECKOUT (for example a ``git archive`` of the
+parent commit) with the same nvcc flags, calls each kernel straight
+through its C entry point (no Python wrapper, so no host time) at the
+shapes of ``chip_smoke.py`` (K1, K2: the four MiT-B5 stages; K3: the three
+UAWarpC levels, raw fp32 mode, with the source as the NHWC view of an NCHW
+tensor; K1 and K2 backward: the four stages of a train-step pass, bf16),
+checks each output against the plain version within ``chip_smoke.py``'s
+limit (bf16 for K1 and K2, 1e-5 for K3, the gradient limit against fp32
+autograd for the backwards), and prints the times of the runs other,
+this, this, other, then the best of each checkout per shape.  K3's fused
+mode with bf16 output (what the UAWarpC head launches) is checked and
+timed in the same loop, for this checkout alone.  Older sources are
+called by their own signatures, known by a marker: K1's forward without
+the grad-mode statistics; K1's backward without them (it recomputes the
+softmax); K2's forward without the weight strides (given the tap-major
+(9, C) copy of the weights that their wrapper made); K2's backward with
+its fp32 g' map; K3 without its two mode arguments.  This checkout's K1
+backward reads the statistics of this checkout's grad-mode forward, made
+once per shape outside the timing.
 """
 import ctypes
 import os
@@ -25,10 +31,15 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("sra_attention", "dwconv3x3_gelu", "local_correlation")
-# a marker of each source's newer C signature: K2's weight strides, K3's
-# fused mode
-MARKERS = {"dwconv3x3_gelu": "w_si", "local_correlation": "out_bf16"}
+KERNELS = ("sra_attention", "dwconv3x3_gelu", "local_correlation",
+           "sra_attention_backward", "dwconv3x3_gelu_backward")
+# a marker of each source's newer C signature: K1's grad-mode statistics
+# (forward and backward), K2's weight strides, K2 backward's scratch query,
+# K3's fused mode
+MARKERS = {"sra_attention": "void* o32", "dwconv3x3_gelu": "w_si",
+           "local_correlation": "out_bf16",
+           "sra_attention_backward": "const void* o32",
+           "dwconv3x3_gelu_backward": "dwconv3x3_gelu_backward_scratch"}
 
 
 def build(root, tag):
@@ -54,15 +65,76 @@ def build(root, tag):
     return libs
 
 
-def k1_call(lib, q, k, v, o, scale, stream):
+def k1_call(lib, newer, q, k, v, o, scale, stream):
+    """K1's inference launch (no statistics)."""
     fn = lib.sra_attention_forward
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    stats = [ctypes.c_void_p] * 2 if newer else []
+    fn.argtypes = ([ctypes.c_void_p] * 4 + stats + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
     B, N, H, _ = q.shape
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, B, N,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *((None, None) if newer else ()), 1, B, N,
             k.shape[1], H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], scale, stream)
     return lambda: fn(*args)
+
+
+def k1_backward_call(lib, newer, q, k, v, g, stats, outs, scale, stream):
+    """K1's bf16 backward into outs (dq, dk, dv); newer sources read the
+    forward's statistics (o32, lse)."""
+    import torch
+    from refign_tpu_torch.ops.attention import dkdv_splits
+    fn = lib.sra_attention_backward
+    extra = [ctypes.c_void_p] * 2 if newer else []
+    fn.argtypes = ([ctypes.c_void_p] * 4 + extra + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 21
+                   + [ctypes.c_float, ctypes.c_void_p])
+    B, N, H, _ = q.shape
+    M = k.shape[1]
+    nsplit = dkdv_splits(B, N, M, H, q.device)  # this checkout's, for both
+    f32 = dict(dtype=torch.float32, device="cuda")
+    scratch = torch.empty((1 if newer else 3) * B * H * N, **f32)
+    part = torch.empty(2 * nsplit * B * H * M * 64, **f32)
+    dq, dk, dv = outs
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            *((stats[0].data_ptr(), stats[1].data_ptr()) if newer else ()),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            part.data_ptr(), 1, B, N, M, H, nsplit, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], scale,
+            stream)
+    return lambda keep=(scratch, part): fn(*args)
+
+
+def k2_backward_call(lib, newer, x, w, b, g, outs, stream):
+    """K2's bf16 backward into outs (dx, dw, db), w OIHW; older sources
+    take an fp32 g' map."""
+    import torch
+    B, H, W, C = x.shape
+    dx, dw, db = outs
+    f32 = dict(dtype=torch.float32, device="cuda")
+    if newer:
+        q = lib.dwconv3x3_gelu_backward_scratch
+        q.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        q.restype = None
+        sizes = (ctypes.c_longlong * 2)()
+        q(x.data_ptr(), g.data_ptr(), dx.data_ptr(), 1, B, H, W, C, sizes)
+        gp_n, part_n = sizes[0], sizes[1]
+    else:
+        q = lib.dwconv3x3_gelu_backward_partials
+        q.argtypes = [ctypes.c_int] * 4
+        q.restype = ctypes.c_longlong
+        gp_n, part_n = x.numel(), q(B, H, W, C)
+    gp = torch.empty(max(gp_n, 1), **f32)
+    part = torch.empty(part_n, **f32)
+    fn = lib.dwconv3x3_gelu_backward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    sc, _, si, sj = w.stride()
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            gp.data_ptr() if gp_n else None, part.data_ptr(), 1, B, H, W, C,
+            si, sj, sc, si, sj, sc, stream)
+    return lambda keep=(gp, part): fn(*args)
 
 
 def k2_call(lib, strided, x, w, b, y, stream):
@@ -103,7 +175,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke
-    from refign_tpu_torch.ops.attention import sra_attention_reference
+    from refign_tpu_torch.ops.attention import (sra_attention_forward,
+                                                sra_attention_reference)
     from refign_tpu_torch.ops.correlation import (
         local_correlation_reference, local_correlation_relu_l2norm_reference)
     from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu_reference
@@ -113,73 +186,112 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     scale = 64 ** -0.5
-    cases = {"K1": [], "K2": [], "K3": [], "K3 fused": []}
-    bf16_limit = (chip_smoke.BF16_REL, chip_smoke.BF16_ABS)
+    # per kernel: (launches per unit, label, references, (rel, abs) limit
+    # of each, outputs, make(tag, outputs) -> a call, or None)
+    cases = {"K1": [], "K2": [], "K3": [], "K3 fused": [], "K1-bwd": [],
+             "K2-bwd": []}
+    bf16_limit = [(chip_smoke.BF16_REL, chip_smoke.BF16_ABS)]
     for n, N, M, H, S, C in chip_smoke.STAGES:
         q, k, v = chip_smoke.attention_case(gen, chip_smoke.B_ROWS, N, M, H,
                                             torch.bfloat16)
         ref = sra_attention_reference(q.float(), k.float(), v.float(), scale)
         cases["K1"].append((n, f"B*H={chip_smoke.B_ROWS * H} N={N} M={M}",
-                            ref, bf16_limit, torch.empty_like(q),
+                            [ref], bf16_limit, [torch.empty_like(q)],
                             lambda t, o, q=q, k=k, v=v: k1_call(
-                                libs[t]["sra_attention"][0], q, k, v, o,
+                                *libs[t]["sra_attention"], q, k, v, o[0],
                                 scale, stream)))
         x, w, b = chip_smoke.dwconv_case(gen, chip_smoke.B_ROWS, S, C,
                                          torch.bfloat16)
         ref = dwconv3x3_gelu_reference(x.float(), w.float(), b.float())
-        cases["K2"].append((n, f"({chip_smoke.B_ROWS},{S},{S},{C})", ref,
-                            bf16_limit, torch.empty_like(x),
+        cases["K2"].append((n, f"({chip_smoke.B_ROWS},{S},{S},{C})", [ref],
+                            bf16_limit, [torch.empty_like(x)],
                             lambda t, y, x=x, w=w, b=b: k2_call(
-                                *libs[t]["dwconv3x3_gelu"], x, w, b, y,
+                                *libs[t]["dwconv3x3_gelu"], x, w, b, y[0],
                                 stream)))
     P = chip_smoke.CORR_PATCH
     for B, H, W, C in chip_smoke.CORR_LEVELS:
         t, s = chip_smoke.corr_case(gen, B, H, W, C, torch.bfloat16)
         ref = local_correlation_reference(t, s, P)
-        cases["K3"].append((1, f"({B},{H},{W},{C}) P={P}", ref,
-                            (0.0, chip_smoke.CORR_ABS), torch.empty_like(ref),
+        cases["K3"].append((1, f"({B},{H},{W},{C}) P={P}", [ref],
+                            [(0.0, chip_smoke.CORR_ABS)],
+                            [torch.empty_like(ref)],
                             lambda tag, o, t=t, s=s: k3_call(
-                                *libs[tag]["local_correlation"], t, s, o, P,
-                                stream)))
+                                *libs[tag]["local_correlation"], t, s, o[0],
+                                P, stream)))
         ref = local_correlation_relu_l2norm_reference(t, s, P)
         cases["K3 fused"].append((
-            1, f"({B},{H},{W},{C}) P={P} bf16 out", ref,
-            (chip_smoke.BF16_REL, chip_smoke.CORR_ABS),
-            torch.empty(ref.shape, dtype=torch.bfloat16, device="cuda"),
+            1, f"({B},{H},{W},{C}) P={P} bf16 out", [ref],
+            [(chip_smoke.BF16_REL, chip_smoke.CORR_ABS)],
+            [torch.empty(ref.shape, dtype=torch.bfloat16, device="cuda")],
             lambda tag, o, t=t, s=s: k3_call(
-                libs[tag]["local_correlation"][0], True, t, s, o, P, stream,
-                fused=1) if tag == "this" else None))
+                libs[tag]["local_correlation"][0], True, t, s, o[0], P,
+                stream, fused=1) if tag == "this" else None))
+
+    def grad_limits(refs):
+        return [(chip_smoke.BF16_REL,
+                 chip_smoke.GRAD_REL * r.abs().max().item()) for r in refs]
+
+    def fp32_grads(fn, inputs, g):
+        ref_in = [t.detach().float().requires_grad_() for t in inputs]
+        return list(torch.autograd.grad(fn(*ref_in), ref_in, g.float()))
+
+    for n, N, M, H, S, C in chip_smoke.TRAIN_STAGES:
+        n *= chip_smoke.TRAIN_PASSES
+        rows = chip_smoke.TRAIN_ROWS
+        q, k, v = chip_smoke.attention_case(gen, rows, N, M, H,
+                                            torch.bfloat16)
+        g = torch.randn(rows, N, H, 64, generator=gen, device="cuda").bfloat16()
+        refs = fp32_grads(
+            lambda a, b_, c: sra_attention_reference(a, b_, c, scale),
+            (q, k, v), g)
+        stats = sra_attention_forward(q, k, v, scale, stats=True)[1]
+        cases["K1-bwd"].append((
+            n, f"B*H={rows * H} N={N} M={M}", refs, grad_limits(refs),
+            [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)],
+            lambda t, o, q=q, k=k, v=v, g=g, stats=stats: k1_backward_call(
+                *libs[t]["sra_attention_backward"], q, k, v, g, stats, o,
+                scale, stream)))
+        x, w, b = chip_smoke.dwconv_case(gen, rows, S, C, torch.bfloat16)
+        g = torch.randn(rows, S, S, C, generator=gen, device="cuda").bfloat16()
+        refs = fp32_grads(dwconv3x3_gelu_reference, (x, w, b), g)
+        cases["K2-bwd"].append((
+            n, f"({rows},{S},{S},{C})", refs, grad_limits(refs),
+            [torch.empty_like(x), torch.empty_like(w), torch.empty_like(b)],
+            lambda t, o, x=x, w=w, b=b, g=g: k2_backward_call(
+                *libs[t]["dwconv3x3_gelu_backward"], x, w, b, g, o, stream)))
 
     def unit(name):
-        return "align" if name.startswith("K3") else "forward"
+        return ("align" if name.startswith("K3") else "train step"
+                if name.endswith("bwd") else "forward")
 
     best = {}
     for rnd, tag in enumerate(("other", "this", "this", "other")):
         for name, rows in cases.items():
             times = []
-            for n, label, ref, (rel, abs_), out, make in rows:
-                fn = make(tag, out)
+            for n, label, refs, limits, outs, make in rows:
+                fn = make(tag, outs)
                 if fn is None:  # a mode this checkout alone has
                     continue
                 if fn() != 0:
                     raise RuntimeError(f"{name} ({tag}) launch failed")
                 torch.cuda.synchronize()
-                err = (out.float() - ref).abs()
-                bad = int((err > rel * ref.abs() + abs_).sum())
-                if bad:
-                    raise AssertionError(f"{name} {label} ({tag}): {bad} "
-                                         f"elements beyond {rel:g}*|ref| + "
-                                         f"{abs_:g}")
+                for ref, (rel, abs_), out in zip(refs, limits, outs):
+                    err = (out.float() - ref).abs()
+                    bad = int((err > rel * ref.abs() + abs_).sum())
+                    if bad:
+                        raise AssertionError(
+                            f"{name} {label} ({tag}): {bad} elements "
+                            f"beyond {rel:g}*|ref| + {abs_:g}")
                 t = chip_smoke.time_ms(fn)
                 times.append(t)
                 key = (name, label, tag)
                 best[key] = min(best.get(key, t), t)
             if not times:
                 continue
-            per_fwd = sum(r[0] * t for r, t in zip(rows, times))
+            per_unit = sum(r[0] * t for r, t in zip(rows, times))
             print(f"run {rnd} {tag:5s} {name}: "
                   f"{[round(t, 4) for t in times]} ms per launch, "
-                  f"{per_fwd:.3f} ms per {unit(name)}", flush=True)
+                  f"{per_unit:.3f} ms per {unit(name)}", flush=True)
     for name, rows in cases.items():
         tags = [tag for tag in ("other", "this")
                 if (name, rows[0][1], tag) in best]

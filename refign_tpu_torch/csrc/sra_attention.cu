@@ -38,7 +38,12 @@
 //    accumulator layout is wgmma's register A-operand layout, so P never
 //    leaves registers; V is read MN-major (transposed) from its tile, and
 //    16-key steps wholly past M are skipped;
-//  * the epilogue divides by the row sum and writes bf16 through o's strides.
+//  * the epilogue divides by the row sum and writes bf16 through o's strides;
+//    in grad mode only (a second instance of the kernel, chosen by the
+//    launch), it also writes the fp32 output and each row's base-2
+//    log-sum-exp, which the backward (sra_attention_backward.cu) reads in
+//    place of recomputing the softmax.  The inference launch passes no such
+//    buffers and runs the instance without them;
 //  * software pipeline: S of chunk c+1 is issued behind PV of chunk c.
 // What holds it back: the softmax and the split of each chunk run on the
 // CUDA cores between its S and its PV, so a block's tensor work waits for
@@ -54,6 +59,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_attention_tile.cuh"
+
 namespace {
 
 constexpr int D = 64;     // head dim (MiT: 64 at every stage)
@@ -68,132 +75,24 @@ struct Strides {
 
 namespace tc {
 
-constexpr int NT = 128;                          // one warpgroup: 4 warps x 16 query rows
-constexpr int TILE = 64 * 64;                    // bf16 of one 64 x 128-byte tile
+using namespace sm90;
+
 constexpr int SMEM_BYTES = 5 * TILE * 2 + 1024;  // Q, K x2, V x2, 1024-byte alignment
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// 2^x on the MUFU unit (relative error ~2^-22); 2^-inf = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 h) {
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// (a, b) as bf16 hi + lo: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
-}
-
-// Stage rows [r0, r0+64) of a (rows, 64) bf16 slab with row stride `ld` as
-// a 64 x 128-byte tile in the 128-byte swizzle that wgmma reads: the
-// 16-byte group gi of row r sits at group gi ^ (r % 8), so the 8 rows of a
-// core matrix fall in distinct banks.  Rows at or beyond `nrows` are
-// zero-filled.  A warp takes 4 whole rows.
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ base, long long ld,
-                                      int r0, int nrows, __nv_bfloat16* dst) {
-#pragma unroll
-  for (int it = 0; it < (64 * D / 8) / NT; ++it) {
-    const int vi = threadIdx.x + it * NT;
-    const int row = vi >> 3, gi = vi & 7;
-    const bool ok = r0 + row < nrows;
-    cp_async16(dst + row * 64 + ((gi ^ (row & 7)) << 3),
-               base + (ok ? (long long)(r0 + row) * ld : 0) + gi * 8, ok);
-  }
-}
-
-// wgmma shared-memory matrix descriptor of a tile above: start address,
-// 8-row groups 1024 bytes apart (the leading and the stride byte offset; a
-// 64-element-wide tile uses only one of them), 128-byte swizzle.  A k16
-// step adds 32 bytes (2 units) along a K-major row, 16 rows (2048 bytes,
-// 128 units) down an MN-major tile.
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-#define WG_D32(d)                                                                        \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), \
-      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]),             \
-      "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),             \
-      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),             \
-      "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]),             \
-      "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-
-#define WG_REGS32                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d (+)= A B, A and B from shared memory, both K-major
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B, A from registers (per warp, the mma.m16n8k16 A-fragment
-// layout), B from shared memory MN-major (transposed)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 128 registers: 4 blocks (16 warps) per SM
+// 128 registers: 4 blocks (16 warps) per SM.  STATS (grad mode only) also
+// writes the fp32 output o32 (o's strides) and the base-2 log-sum-exp of
+// each row's scaled logits, lse[(b * H + h) * N + row], for the backward;
+// the inference instance (STATS false) is the kernel without them.
+template <bool STATS>
 __global__ void __launch_bounds__(NT, 4)
 sra_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int N, int M, Strides qs,
-                          Strides ks, Strides vs, Strides os, float scale_log2) {
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ o32,
+                          float* __restrict__ lse, int N, int M, Strides qs, Strides ks,
+                          Strides vs, Strides os, float scale_log2) {
   extern __shared__ uint4 smem_tc[];
-  // 1024-byte aligned tiles: the swizzle pattern repeats every 1024 bytes
-  const uint32_t base_s = smem_u32(smem_tc);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<char*>(smem_tc) + (((base_s + 1023) & ~1023u) - base_s));
+  __nv_bfloat16* Qs = align1024(smem_tc);
   __nv_bfloat16* Ks = Qs + TILE;      // two buffers
   __nv_bfloat16* Vs = Ks + 2 * TILE;  // two buffers
 
@@ -225,12 +124,10 @@ sra_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
   // runs, and chunk c+2 loads into the buffers chunk c used.
   float s[TK / 8][4];
   cp_async_wait_all();
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_smem();
   __syncthreads();
   wg_fence();
-  const uint64_t dk0 = desc_sw128(Ks);
-#pragma unroll
-  for (int ks4 = 0; ks4 < D / 16; ++ks4) wgmma_ss(s, dq + 2 * ks4, dk0 + 2 * ks4, ks4 > 0);
+  wgmma_ss_hd(s, dq, desc_sw128(Ks));
   wg_commit();
   if (nchunk > 1) {
     stage(kb, ks.n, TK, M, Ks + TILE);
@@ -280,13 +177,7 @@ sra_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     // O += P_hi V + P_lo V; the S tiles 2kk, 2kk+1 are the A fragment of
     // keys 16kk.., rows 16kk.. of V (2048 bytes, 128 descriptor units)
     uint32_t ph[TK / 16][4], pl[TK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      split2(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
-      split2(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
-      split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
-      split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
-    }
+    split_frags(s, ph, pl);
     const uint64_t dv = desc_sw128(Vs + buf);
     wg_fence();
 #pragma unroll
@@ -298,11 +189,9 @@ sra_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     wg_commit();
     if (c + 1 < nchunk) {
       cp_async_wait_all();
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_async_smem();
       __syncthreads();
-      const uint64_t dk = desc_sw128(Ks + TILE - buf);
-#pragma unroll
-      for (int ks4 = 0; ks4 < D / 16; ++ks4) wgmma_ss(s, dq + 2 * ks4, dk + 2 * ks4, ks4 > 0);
+      wgmma_ss_hd(s, dq, desc_sw128(Ks + TILE - buf));
       wg_commit();
     }
     wg_wait0();
@@ -328,6 +217,14 @@ sra_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
       for (int dt = 0; dt < D / 8; ++dt)
         *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) =
             __floats2bfloat162_rn(oacc[dt][2 * r] * inv, oacc[dt][2 * r + 1] * inv);
+      if (STATS) {
+        float* dst32 = o32 + b * os.b + h * os.h + (long long)row * os.n + t4 * 2;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt)
+          *reinterpret_cast<float2*>(dst32 + dt * 8) =
+              make_float2(oacc[dt][2 * r] * inv, oacc[dt][2 * r + 1] * inv);
+        if (t4 == 0) lse[((long long)b * gridDim.y + h) * N + row] = m_run[r] + log2f(l);
+      }
     }
   }
 }
@@ -516,28 +413,35 @@ sra_attention_kernel_fp32(const float* __restrict__ q, const float* __restrict__
 
 // q (B,N,H,64), k/v (B,M,H,64), o (B,N,H,64), all of one type (fp32, or
 // bf16 when is_bf16), head-dim stride 1, other strides in elements and
-// multiples of 8, pointers 16-byte aligned.  Returns cudaGetLastError().
+// multiples of 8, pointers 16-byte aligned.  o32 and lse: null, or (bf16
+// only, the grad-mode forward) the fp32 output at o's strides and the
+// (B, H, N) base-2 log-sum-exp of the rows of scale * log2(e) * q k^T, for
+// the backward.  Returns cudaGetLastError().
 extern "C" int sra_attention_forward(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B, int N,
-    int M, int H, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    const void* q, const void* k, const void* v, void* o, void* o32, void* lse, int is_bf16,
+    int B, int N, int M, int H, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
     long long k_sn, long long k_sh, long long v_sb, long long v_sn, long long v_sh,
     long long o_sb, long long o_sn, long long o_sh, float scale, void* stream) {
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh},
       os{o_sb, o_sn, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + TQ - 1) / TQ, H, B);
+  if ((o32 != nullptr || lse != nullptr) && !(is_bf16 && o32 != nullptr && lse != nullptr))
+    return (int)cudaErrorInvalidValue;
   // the shared-memory attribute belongs to the current device: set it before
   // every launch so a process that launches on several cards gets it on each
   if (is_bf16) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tc::sra_attention_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        tc::SMEM_BYTES);
+    const auto kernel = o32 != nullptr ? tc::sra_attention_kernel_bf16<true>
+                                       : tc::sra_attention_kernel_bf16<false>;
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     // exp(x * scale) = exp2(x * scale * log2 e)
-    tc::sra_attention_kernel_bf16<<<grid, tc::NT, tc::SMEM_BYTES, s>>>(
+    kernel<<<grid, tc::NT, tc::SMEM_BYTES, s>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, M, qs, ks,
-        vs, os, scale * 1.4426950408889634f);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        static_cast<float*>(o32), static_cast<float*>(lse), N, M, qs, ks, vs, os,
+        scale * 1.4426950408889634f);
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
         f32::sra_attention_kernel_fp32, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/kernels/<name>-<hash>.so`` inside the package
 (``build/`` is git-ignored), then loads with ``ctypes``.  The hash is of
-the source and the flags, so an edited source builds anew and an
-unchanged one is reused.  Nothing is built at import: the first launch of
-a kernel builds it, or :func:`build_all` builds every source at once,
-one ``nvcc`` process per source, all started together.
+the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header builds anew and an unchanged one is reused.  Nothing is
+built at import: the first launch of a kernel builds it, or
+:func:`build_all` builds every source at once, one ``nvcc`` process per
+source, all started together.
 """
 from __future__ import annotations
 
@@ -46,8 +47,12 @@ def kernel_names() -> List[str]:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha1(f.read())
+    # the source, the shared headers it may include, and the flags
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 

@@ -16,7 +16,10 @@ package's default bf16 arm uses the tanh form (``refign_tpu/nn/layers.py:
 The backward (the JAX ``_fused_bwd``: the VJP of the fp32 shift-and-add
 formulation) runs in fp32, g' = g * GELU'(z) included, and rounds dx, dw
 and db once to the input dtype, as autograd of the plain version does; dw
-comes back in the weight's own layout.
+comes back in the weight's own layout.  On bf16 maps of whole 8-channel
+vectors it is one halo tile that keeps g' on chip
+(``tests/test_torch_dwconv_bwd_tiling.py`` emulates its tiling); fp32
+and other maps go through an fp32 g' map in device memory.
 """
 from __future__ import annotations
 
@@ -68,8 +71,9 @@ def _bwd_lib():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.dwconv3x3_gelu_backward_partials.argtypes = [ctypes.c_int] * 4
-        lib.dwconv3x3_gelu_backward_partials.restype = ctypes.c_longlong
+        lib.dwconv3x3_gelu_backward_scratch.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.dwconv3x3_gelu_backward_scratch.restype = None
     return lib
 
 
@@ -131,16 +135,23 @@ def dwconv3x3_gelu_backward(x: torch.Tensor, w: torch.Tensor,
     db = torch.empty_like(b, memory_format=torch.contiguous_format)
     dw_sc, _, dw_si, dw_sj = _as_oihw(dw, C).stride()
     lib = _bwd_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    # the kernel picks its body from the dtype, C and the alignment of x, g
+    # and dx, and says what scratch that body needs: the fp32 g' map (none
+    # on the bf16 halo tile, which keeps g' on chip) and the partials
+    sizes = (ctypes.c_longlong * 2)()
+    lib.dwconv3x3_gelu_backward_scratch(x.data_ptr(), g.data_ptr(),
+                                        dx.data_ptr(), is_bf16, B, H, W, C,
+                                        sizes)
     f32 = dict(dtype=torch.float32, device=x.device)
-    gp = torch.empty(x.shape, **f32)
-    part = torch.empty(lib.dwconv3x3_gelu_backward_partials(B, H, W, C),
-                       **f32)
+    gp = torch.empty(sizes[0], **f32) if sizes[0] else None
+    part = torch.empty(sizes[1], **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dwconv3x3_gelu_backward(
             x.data_ptr(), w.data_ptr(), b.contiguous().data_ptr(),
             g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            gp.data_ptr(), part.data_ptr(), int(x.dtype == torch.bfloat16),
+            None if gp is None else gp.data_ptr(), part.data_ptr(), is_bf16,
             B, H, W, C, w_si, w_sj, w_sc, dw_si, dw_sj, dw_sc, stream)
     if err != 0:
         raise RuntimeError(f"dwconv3x3_gelu backward kernel launch failed: "

@@ -15,14 +15,19 @@ the NCHW-strided source and misaligned inputs, the launch counters, the
 absence of per-call copies and the wrappers' refusals; and the K1 and K2
 backward kernels through autograd (inputs that require grad on CUDA launch
 them) against autograd of the fp32 plain versions, over ragged shapes,
-strided k/v, head-strided q and both weight layouts, within 3e-5 of each
-gradient's largest |ref| (fp32 sums over many terms in another order),
-plus 2^-8*|ref| in bf16.  Tolerances: a bf16
+strided k/v, head-strided and misaligned q and dO, both weight layouts and
+misaligned maps, within 3e-5 of each gradient's largest |ref| (fp32 sums
+over many terms in another order), plus 2^-8*|ref| in bf16; K1's
+grad-mode statistics (its log-sum-exp against torch.logsumexp within
+1e-5 relative), the inference launch without them, identical bits from
+two backward calls, and no fp32 g' map on K2's bf16 backward.  Tolerances: a bf16
 kernel output within 2^-8*|ref| + 1e-4 of the fp32 plain version on the
 same inputs (one bf16 rounding plus summation order); fp32 within 1e-5;
 K3 (fp32 sums of unit-norm features) within 1e-5, and its fused bf16
 output within 2^-8*|ref| + 1e-5 of the fp32 fused plain version.
 """
+import math
+
 import pytest
 import torch
 
@@ -30,6 +35,7 @@ from refign_tpu_torch import full_fp32_precision
 from refign_tpu_torch.ops import _build
 from refign_tpu_torch.ops.attention import (sra_attention,
                                             sra_attention_backward,
+                                            sra_attention_forward,
                                             sra_attention_reference)
 from refign_tpu_torch.ops.correlation import (
     local_correlation, local_correlation_reference,
@@ -369,7 +375,9 @@ def _ref_grads(fn, inputs, g):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("N,M,H", [(1, 1, 1), (63, 17, 2), (64, 64, 1),
                                    (130, 65, 3), (1000, 256, 5),
-                                   (4100, 256, 1), (200, 300, 2)])
+                                   (4100, 256, 1), (200, 300, 2),
+                                   (4100, 300, 2), (1, 300, 1),
+                                   (65, 129, 3)])
 def test_attention_backward_through_autograd(gen, dtype, N, M, H):
     """q and one kv tensor require grad; the backward kernel fills both
     (dk and dv land in the two halves of the kv gradient)."""
@@ -390,21 +398,94 @@ def test_attention_backward_through_autograd(gen, dtype, N, M, H):
     _grad_close(kv.grad[:, :, 1], want[2], dtype)
 
 
+@pytest.mark.parametrize("layout", ["misaligned", "head_strided"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_backward_strided_inputs(gen, dtype):
-    """Head-strided q and dO, k and v from separate tensors, called
+def test_attention_backward_strided_inputs(gen, dtype, layout):
+    """q and dO off a 16-byte boundary (copied by the wrapper) or strided
+    over heads (read in place), k and v from separate tensors, called
     directly."""
-    base = torch.randn(1, 77, 2, 65, generator=gen, device="cuda").to(dtype)
-    q = base[..., 1:]
+    if layout == "misaligned":
+        base = torch.randn(1, 77, 2, 65, generator=gen, device="cuda")
+        q = base.to(dtype)[..., 1:]
+        gb = torch.randn(1, 77, 2, 66, generator=gen, device="cuda")
+        g = gb.to(dtype)[..., 2:]
+    else:
+        base = torch.randn(1, 77, 2, 3, 64, generator=gen, device="cuda")
+        q = base.to(dtype)[:, :, :, 1]
+        g = torch.randn(1, 77, 2, 2, 64, generator=gen, device="cuda"
+                        ).to(dtype)[:, :, :, 0]
     k = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
     v = torch.randn(1, 9, 2, 64, generator=gen, device="cuda").to(dtype)
-    gb = torch.randn(1, 77, 2, 66, generator=gen, device="cuda").to(dtype)
-    g = gb[..., 2:]
-    got = sra_attention_backward(q, k, v, g, 0.2)
+    _, stats = sra_attention_forward(q, k, v, 0.2, stats=True)
+    got = sra_attention_backward(q, k, v, g, 0.2, stats)
     want = _ref_grads(lambda a, b, c: sra_attention_reference(a, b, c, 0.2),
                       (q, k, v), g)
     for a, b in zip(got, want):
         _grad_close(a, b, dtype)
+
+
+def test_attention_grad_forward_statistics(gen):
+    """K1's grad-mode forward on bf16: the output is its fp32 output
+    rounded once, and its base-2 log-sum-exp times ln 2 is torch.logsumexp
+    of the fp32 scaled logits within 1e-5 relative (1e-5 absolute below
+    1)."""
+    q = torch.randn(2, 300, 3, 64, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(2, 289, 2, 3, 64, generator=gen, device="cuda"
+                     ).bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    o, (o32, lse) = sra_attention_forward(q, k, v, 0.125, stats=True)
+    assert o32.dtype == lse.dtype == torch.float32
+    assert lse.shape == (2, 3, 300)
+    assert torch.equal(o, o32.bfloat16())
+    want = torch.logsumexp(
+        torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * 0.125, -1)
+    err = (lse * math.log(2.0) - want).abs()
+    assert (err <= 1e-5 * want.abs().clamp(min=1.0)).all(), err.max()
+    # fp32 inputs: the backward recomputes the statistics, none are written
+    assert sra_attention_forward(q.float(), k.float(), v.float(), 0.125,
+                                 stats=True)[1] == ()
+
+
+def test_attention_inference_forward_takes_no_statistics(gen):
+    """Without grad the forward launches the kernel without statistics: it
+    allocates the output alone, and its output has the bits of the
+    grad-mode launch."""
+    q = torch.randn(2, 1000, 2, 64, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, 289, 2, 64, generator=gen, device="cuda").bfloat16()
+    o_grad, stats = sra_attention_forward(q, k, k, 0.125, stats=True)
+    snapshot = [t.clone() for t in stats]
+    q.requires_grad_()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        o = sra_attention(q, k, k, 0.125)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == o.nbytes
+    assert torch.equal(o, o_grad)
+    assert all(torch.equal(a, b) for a, b in zip(stats, snapshot))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_kernels_are_deterministic(gen, dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    q = torch.randn(2, 4100, 2, 64, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(2, 300, 2, 2, 64, generator=gen, device="cuda"
+                     ).to(dtype)
+    g = torch.randn(2, 4100, 2, 64, generator=gen, device="cuda").to(dtype)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    _, stats = sra_attention_forward(q, k, v, 0.125, stats=True)
+    first = sra_attention_backward(q, k, v, g, 0.125, stats)
+    second = sra_attention_backward(q, k, v, g, 0.125, stats)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    x = torch.randn(2, 40, 43, 264, generator=gen, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(264, 1, 3, 3, generator=gen, device="cuda")
+         ).to(dtype)
+    bias = (0.1 * torch.randn(264, generator=gen, device="cuda")).to(dtype)
+    gx = torch.randn(2, 40, 43, 264, generator=gen, device="cuda").to(dtype)
+    first = dwconv3x3_gelu_backward(x, w, bias, gx)
+    second = dwconv3x3_gelu_backward(x, w, bias, gx)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_attention_without_grad_launches_no_backward(gen):
@@ -421,7 +502,8 @@ def test_attention_without_grad_launches_no_backward(gen):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("layout", ["oihw", "hwio"])
 @pytest.mark.parametrize("B,S,C", [(1, 1, 8), (2, 7, 13), (2, 33, 40),
-                                   (2, 17, 264), (3, 128, 32)])
+                                   (2, 17, 264), (3, 128, 32), (2, 40, 48),
+                                   (1, 5, 72)])
 def test_dwconv_backward_through_autograd(gen, dtype, layout, B, S, C):
     """x, the weight (in either layout, its gradient in the same) and the
     bias require grad; the backward kernels fill all three."""
@@ -442,3 +524,37 @@ def test_dwconv_backward_through_autograd(gen, dtype, layout, B, S, C):
     assert w.grad.shape == w.shape and w.grad.stride() == w.stride()
     for t, r in zip((x, w, b), want):
         _grad_close(t.grad, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dwconv_backward_misaligned_inputs(gen, dtype):
+    """x and g off a 16-byte boundary (contiguous views at an odd element
+    offset) take the three-kernel body."""
+    n = 2 * 9 * 11 * 40
+    x = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[1:] \
+        .view(2, 9, 11, 40)
+    g = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)[1:] \
+        .view(2, 9, 11, 40)
+    w = (0.3 * torch.randn(3, 3, 1, 40, generator=gen, device="cuda")
+         ).to(dtype)
+    b = (0.1 * torch.randn(40, generator=gen, device="cuda")).to(dtype)
+    got = dwconv3x3_gelu_backward(x, w, b, g)
+    want = _ref_grads(dwconv3x3_gelu_reference, (x, w, b), g)
+    for t, r in zip(got, want):
+        _grad_close(t, r, dtype)
+
+
+def test_dwconv_backward_keeps_gprime_on_chip(gen):
+    """K2's bf16 backward at the 32^2 x 1280 train-step shape allocates dx,
+    dw, db and its partials, and no fp32 g' map (42 MB here)."""
+    x = torch.randn(8, 32, 32, 1280, generator=gen, device="cuda").bfloat16()
+    w = (0.3 * torch.randn(1280, 1, 3, 3, generator=gen, device="cuda")
+         ).bfloat16()
+    b = (0.1 * torch.randn(1280, generator=gen, device="cuda")).bfloat16()
+    g = torch.randn(8, 32, 32, 1280, generator=gen, device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dwconv3x3_gelu_backward(x, w, b, g)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < x.numel() * 4

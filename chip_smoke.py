@@ -11,14 +11,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the card, at its main-path shapes (K1, K2: the four MiT-B5 stages; K3:
    the three UAWarpC levels at the UDA geometry, in the fused ReLU + L2
    mode with bf16 output that the head launches and in the raw fp32
-   mode) plus ragged cases, with
+   mode, and at the stage-1 UAWarpC train step's three levels) plus ragged
+   cases, with
    CUDA-event times (batches of back-to-back calls) beside the least time
    the card could take (bound), the share of that bound reached, and one
    PyTorch library call that computes the same function, where there is
    one; and the K1 and K2 backward kernels against autograd of their plain
-   versions at the train step's shapes (bf16, fp32) and ragged ones (the
-   kernel, plain and library backwards timed by their device time, as the
-   host work of the wrapper and of autograd outlasts their kernels);
+   versions at the train step's shapes (bf16, fp32) and ragged ones, and
+   K3's backward at the stage-1 UAWarpC step's three levels (fused bf16,
+   raw) and ragged ones (the kernel, plain and library backwards timed by
+   their device time, as the host work of the wrapper and of autograd
+   outlasts their kernels);
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
@@ -43,12 +46,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    must launch K1 and K2 312 times forward and 104 times backward and K3 3
    times; then 1 warm-up and 5 timed steps with finite losses, the peak
    memory and a profile;
+6b. UAWarpC train step, stage 1: VGG-16 + UAWarpC (seeded random
+   weights, bf16 on fp32 masters, remat_modules, Adam at lr 1e-4 and wd
+   4e-4) on B=6 seeded synthetic uint8 pairs of 750^2, the prime view
+   synthesised on the card and everything cropped to 520^2, through
+   ``build_align_trainer`` and ``align_train_step``: from one state with
+   the same draws, the losses and every head gradient through the kernels
+   against the plain versions' (tightly on a reduced fp32 step, for the
+   wiring at full size in bf16); one step must launch K3 and its backward
+   9 times each (3 levels x 3 head passes); 1 warm-up and 5 timed steps
+   with finite losses, the peak memory and a profile; then one stage-2
+   step (elastic flow, visibility mask) with finite losses and the same
+   launch counts;
 7. each kernel's time per call of its path (K1 and K2 summed over the 52
    launches of a forward, beside SDPA's and cuDNN conv + gelu's sums; K3
    over an align; the backward kernels over the 104 launches of a train
    step, beside SDPA's and cuDNN's forward + backward and the sums of
-   their first designs), the ``kernels`` JSON line, the card line and,
-   last, the result line.
+   their first designs; K3's backward over the 9 launches of a stage-1
+   UAWarpC step), the ``kernels`` JSON line, the card line and, last, the
+   result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -114,6 +130,19 @@ ALIGN_B, ALIGN_HW = 4, 1024
 CORR_LEVELS = [(4, 256, 256, 128), (4, 128, 128, 256), (4, 32, 32, 256)]
 CORR_PATCH = 9
 
+# UAWarpC training, stage 1 (configs/megadepth/uawarpc_stage1.yaml:9,15,51):
+# B=6 uint8 pairs loaded at 750^2, the prime synthesised there, everything
+# cropped to 520^2; three head passes a step, each launching K3 (fused
+# ReLU + L2, bf16 out) and its backward once per level: (B, H, W, C) of
+# levels 1, 2 (1/4 and 1/8 of 520^2) and 3 (32^2 of the 256^2 pyramid)
+ALIGN_TRAIN_B, ALIGN_TRAIN_LOAD, ALIGN_TRAIN_CROP = 6, 750, 520
+ALIGN_TRAIN_PASSES = 3
+ALIGN_TRAIN_LEVELS = [(6, 130, 130, 128), (6, 65, 65, 256), (6, 32, 32, 256)]
+ALIGN_TRAIN_LAUNCHES = {
+    "local_correlation": ALIGN_TRAIN_PASSES * len(ALIGN_TRAIN_LEVELS),
+    "local_correlation_backward": ALIGN_TRAIN_PASSES * len(ALIGN_TRAIN_LEVELS),
+}
+
 # per-step sums (ms, 104 launches each) of the first designs of the
 # backward kernels (K1: fp32 CUDA cores, softmax recomputed in three passes;
 # K2: three kernels through an fp32 g' map), read by this script on an
@@ -156,6 +185,25 @@ TRAIN_BF16_LOSS_REL = 2e-4
 TRAIN_BF16_GRAD_REL = 0.5
 TRAIN_BF16_MEDIAN_REL = 0.25
 TRAIN_BF16_TOTAL_REL = 0.2
+# the UAWarpC train step, kernels against plain versions, from one state
+# with the same draws: the three losses (relative) and the head gradients
+# (relative L2: all together, the median parameter, the largest one).  fp32
+# (B=2, 288^2 -> 256^2): summation order only, which the head's train-mode
+# BatchNorm amplifies in single parameters (a BN bias of an uncertainty
+# module the most).  bf16 (B=6, 750^2 -> 520^2): both round every
+# activation to bf16 at the same places; the full-width comparison checks
+# the wiring, the kernels themselves are held tightly by phase 3 and by the
+# fp32 step.  Each limit is about 10x the reading on an H100 (fp32: losses
+# equal, all gradients 6.07e-6, median parameter 5.43e-6, largest 3.03e-3;
+# bf16: losses 2.07e-5, all 4.06e-3, median 5.93e-3, largest 7.68e-2).
+ALIGN_FP32_LOSS_REL = 1e-6
+ALIGN_FP32_TOTAL_REL = 6e-5
+ALIGN_FP32_MEDIAN_REL = 5e-5
+ALIGN_FP32_GRAD_REL = 3e-2
+ALIGN_BF16_LOSS_REL = 2e-4
+ALIGN_BF16_TOTAL_REL = 4e-2
+ALIGN_BF16_MEDIAN_REL = 6e-2
+ALIGN_BF16_GRAD_REL = 0.8
 # backward kernels against autograd of the plain versions on the same
 # inputs: fp32 sums over up to 131k terms (dw at stage 1) in another
 # order, so within GRAD_REL of the largest |ref| of each gradient (the
@@ -367,6 +415,11 @@ def phase_kernels():
               for lvl in CORR_LEVELS]
     cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "raw", bf16, None)
               for lvl in CORR_LEVELS]
+    # and at the stage-1 UAWarpC train step's levels, 3 launches a step each
+    cases += [("local_correlation", ALIGN_TRAIN_PASSES, (*lvl, CORR_PATCH),
+               "align-train", bf16, bf16) for lvl in ALIGN_TRAIN_LEVELS]
+    cases += [("local_correlation", 0, (*lvl, CORR_PATCH), "raw-train", bf16,
+               None) for lvl in ALIGN_TRAIN_LEVELS]
     cases += [("local_correlation", 0, (2, 33, 70, 40, 5), "ragged",
                torch.float32, None),
               ("local_correlation", 0, (1, 17, 45, 40, 9), "ragged",
@@ -465,6 +518,75 @@ def check_grad(name, got, ref, dtype):
                        GRAD_REL * ref.abs().max().item())
 
 
+def corr_grad_scale(t, s, g, P, fused):
+    """Per element of K3's two gradients, from the plain version, (gt's,
+    gs's) pairs of two bounds: the sum of the magnitudes of the fp32 terms
+    it sums (the volume's gradient bounded without cancellation), the
+    scale of its summation error, which pixels whose clamp makes graw ~1e12
+    leave far above an element where their terms cancel; and, in the fused
+    mode, the sum over the taps whose raw sum lies within fp32 summation
+    noise of 0 (1e-5 of the sum of |t||s|) of their whole term, as the
+    ReLU's slope there may differ between the kernel's recomputed sums and
+    the plain version's."""
+    import torch
+    from refign_tpu_torch.ops.correlation import local_correlation_reference
+    g = g.float()
+    gmag, jump = g.abs(), torch.zeros_like(g)
+    if fused:
+        raw = local_correlation_reference(t.float(), s.float(), P)
+        absraw = local_correlation_reference(t.float().abs(),
+                                             s.float().abs(), P)
+        r = raw.clamp_min(0)
+        den = r.square().sum(-1, keepdim=True).clamp_min(1e-24).sqrt()
+        n = r / den
+        slope = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
+        whole = (g.abs() + n * (g * n).sum(-1, keepdim=True).abs()) / den
+        gmag = slope * whole
+        jump = torch.where((raw != 0) & (raw.abs() <= 1e-5 * absraw),
+                           whole, 0.0)
+        del raw, absraw, r, n, slope, whole
+    ta = t.detach().float().abs().requires_grad_()
+    sa = s.detach().float().abs().requires_grad_()
+    out = local_correlation_reference(ta, sa, P)
+    return (torch.autograd.grad(out, (ta, sa), gmag, retain_graph=True),
+            torch.autograd.grad(out, (ta, sa), jump))
+
+
+def check_corr_grad(name, got, ref, scale, jump, dtype):
+    """K3's backward against the fp32 gradient of its plain version:
+    |got - ref| <= GRAD_REL*scale + jump (+ BF16_REL*|ref| in bf16), with
+    the bounds of ``corr_grad_scale``; returns the max abs error."""
+    import torch
+    if got.dtype != dtype:
+        raise AssertionError(f"{name}: gradient {got.dtype}, not {dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = (got.float() - ref).abs()
+    lim = GRAD_REL * scale + jump
+    if dtype == torch.bfloat16:
+        lim = lim + BF16_REL * ref.abs()
+    bad = err > lim
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} elements beyond the "
+                             f"limit; max abs err {err.max().item():.3e}")
+    return err.max().item()
+
+
+def corr_grad_case(gen, B, H, W, C, P, dtype, fused):
+    """The head's inputs (``corr_case``) with the exact zeros of the train
+    step: a target pixel of zeros and a source block of zeros that whole
+    9x9 windows lie in (warped out of the image), and a gradient in the
+    output's dtype (bf16 in the fused mode with bf16 inputs, else fp32)."""
+    import torch
+    t, s = corr_case(gen, B, H, W, C, dtype)
+    t[0, H // 2, W // 3] = 0
+    s[:, :min(H, 12), :min(W, 14)] = 0
+    out_dtype = dtype if fused else torch.float32
+    g = torch.randn(B, H, W, P * P, generator=gen, device="cuda").to(
+        out_dtype)
+    return t, s, g
+
+
 def phase_backward_kernels():
     """K1 and K2 backward against autograd of their plain versions, at the
     train step's shapes (bf16: the path; fp32: the precision check) and
@@ -474,6 +596,9 @@ def phase_backward_kernels():
     from refign_tpu_torch.ops.attention import (sra_attention_backward,
                                                 sra_attention_forward,
                                                 sra_attention_reference)
+    from refign_tpu_torch.ops.correlation import (
+        local_correlation_backward, local_correlation_reference,
+        local_correlation_relu_l2norm_reference)
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu_backward,
                                              dwconv3x3_gelu_reference)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -515,6 +640,16 @@ def phase_backward_kernels():
                    torch.float32)]
     cases += [("dwconv3x3_gelu_backward", 0, (2, 33, 40), "ragged", dt)
               for dt in (bf16, torch.float32)]
+    # K3: the head launches the fused mode (bf16 in and out) at the three
+    # levels, once a pass; the raw mode (fp32 gradient) off the path
+    cases += [("local_correlation_backward", ALIGN_TRAIN_PASSES,
+               (*lvl, CORR_PATCH), "main", bf16) for lvl in ALIGN_TRAIN_LEVELS]
+    cases += [("local_correlation_backward", 0, (*lvl, CORR_PATCH), "raw",
+               bf16) for lvl in ALIGN_TRAIN_LEVELS]
+    cases += [("local_correlation_backward", 0, (2, 33, 70, 40, 5), kind,
+               torch.float32) for kind in ("ragged", "ragged-raw")]
+    cases += [("local_correlation_backward", 0, (1, 17, 45, 40, 9), kind,
+               bf16) for kind in ("ragged", "ragged-raw")]
 
     for name, n_launch, shape, kind, dtype in cases:
         if name == "sra_attention_backward":
@@ -541,6 +676,23 @@ def phase_backward_kernels():
                 * q.element_size()
             bnd, bound_by = bound(nbytes, 10.0 * B * H * N * M * 64,
                                   q.element_size())
+        elif name == "local_correlation_backward":
+            B, H, W, C, P = shape
+            fused = kind in ("main", "ragged")
+            t, s, g = corr_grad_case(gen, B, H, W, C, P, dtype, fused)
+            plain_fn = (local_correlation_relu_l2norm_reference if fused
+                        else local_correlation_reference)
+            refs, plain = grads_of(lambda a, b_: plain_fn(a, b_, P), (t, s),
+                                   g)
+            scales, jumps = corr_grad_scale(t, s, g, P, fused)
+            got = local_correlation_backward(t, s, g, P, fused)
+            kernel = lambda: local_correlation_backward(  # noqa: E731
+                t, s, g, P, fused)
+            library = None  # no single PyTorch call computes it
+            nbytes = (4 * B * H * W * C * t.element_size()
+                      + B * H * W * P * P * g.element_size())
+            bnd, bound_by = bound(nbytes, 4.0 * B * H * W * P * P * C,
+                                  t.element_size())
         else:
             B, S, C = shape
             x, w, b = dwconv_case(gen, B, S, C, dtype)
@@ -563,8 +715,15 @@ def phase_backward_kernels():
             bnd, bound_by = bound(nbytes, 60.0 * B * S * S * C,
                                   x.element_size())
         torch.cuda.synchronize()
-        err = max(check_grad(f"{name}{shape} {kind} d{i}", t, r, dtype)
-                  for i, (t, r) in enumerate(zip(got, refs)))
+        if name == "local_correlation_backward":
+            err = max(check_corr_grad(f"{name}{shape} {kind} d{i}", a, r, sc,
+                                      jp, dtype)
+                      for i, (a, r, sc, jp) in enumerate(zip(
+                          got, refs, scales, jumps)))
+            del scales, jumps
+        else:
+            err = max(check_grad(f"{name}{shape} {kind} d{i}", a, r, dtype)
+                      for i, (a, r) in enumerate(zip(got, refs)))
         # device time of all three: the plain and library backwards run
         # through autograd, and the kernels' wrapper allocates and checks in
         # Python, host work that outlasts the kernels at these shapes (the
@@ -573,18 +732,22 @@ def phase_backward_kernels():
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
                    ms=device_ms(kernel), wrapper_ms=time_ms(kernel),
-                   plain_ms=device_ms(plain), library_ms=device_ms(library),
+                   plain_ms=device_ms(plain),
+                   library_ms=None if library is None else device_ms(library),
                    bound_ms=bnd, bound_by=bound_by)
-        if not all(row[k] > 0 for k in ("ms", "plain_ms", "library_ms")):
+        if not all(row[k] > 0 for k in ("ms", "plain_ms", "library_ms")
+                   if row[k] is not None):
             raise AssertionError(f"{name}{shape}: the profiler recorded no "
                                  f"device time")
         row["bound_share"] = bnd / row["ms"]
         rows.append(row)
-        log(f"  {name:23s} {kind:6s} {row['dtype']:8s} {str(shape):22s} "
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
+        log(f"  {name:26s} {kind:10s} {row['dtype']:8s} {str(shape):22s} "
             f"err {err:.2e}  kernel {row['ms']:.4f} ms (wrapper "
             f"{row['wrapper_ms']:.4f})  bound {bnd:.4f} ms ({bound_by}, "
             f"{100 * row['bound_share']:.1f} % of it)  plain "
-            f"{row['plain_ms']:.4f} ms  library {row['library_ms']:.4f} ms")
+            f"{row['plain_ms']:.4f} ms  library {lib}")
         del got, refs, plain, library
     return rows
 
@@ -979,11 +1142,184 @@ def phase_train(card):
     return launches, sec, peak
 
 
+def align_batch(B, S, seed, device):
+    """B seeded synthetic uint8 image pairs of S^2: smooth random scenes
+    (bicubic upsampling of 12x12 noise, plus pixel noise), the reference a
+    shifted, noisier copy of the target, so the head has structure to
+    match."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator().manual_seed(seed)
+    low = torch.randn(B, 3, 12, 12, generator=g)
+    trg = F.interpolate(low, (S, S), mode="bicubic", align_corners=False)
+    trg = trg + 0.1 * torch.randn(B, 3, S, S, generator=g)
+    ref = trg.roll((5, -7), dims=(2, 3)) + 0.15 * torch.randn(
+        B, 3, S, S, generator=g)
+
+    def u8(x):
+        return ((x.permute(0, 2, 3, 1) * 60 + 128).clamp(0, 255)
+                .to(torch.uint8))
+
+    return {"image_ref": u8(ref).to(device), "image_trg": u8(trg).to(device)}
+
+
+def align_grads_kernels_vs_plain(trainer, batch, gen):
+    """From one state and the same draws, one UAWarpC step's losses and
+    head gradients through the kernels and through their plain versions
+    (the head's BN statistics restored after each)."""
+    from refign_tpu_torch.alignment.trainer import draw_align, forward_backward
+    B, H, W = batch["image_trg"].shape[:3]
+    draws = draw_align(trainer.cfg, B, H, W, gen)
+    head = trainer.state.head
+    saved = {k: v.clone() for k, v in head.state_dict().items()}
+
+    def run():
+        logs = forward_backward(trainer, batch, draws)
+        grads = {n: p.grad.detach().clone()
+                 for n, p in head.named_parameters()}
+        trainer.state.optimizer.zero_grad(set_to_none=True)
+        head.load_state_dict(saved)
+        return logs, grads
+
+    kernel = run()
+    plain_versions(True)
+    try:
+        plain = run()
+    finally:
+        plain_versions(False)
+    return kernel, plain
+
+
+def compare_align_step(what, kernel, plain, loss_limit, total_limit,
+                       median_limit, grad_limit):
+    """The three losses' relative differences and the relative L2 error of
+    the head gradients, kernels against plain versions: all together, the
+    median parameter and the largest one, each against its limit."""
+    import torch
+    (logs_k, g_k), (logs_p, g_p) = kernel, plain
+    loss_rel = {}
+    for key in ("train_matching_loss", "loss_ss", "loss_us"):
+        a, b = float(logs_k[key]), float(logs_p[key])
+        if not (torch.isfinite(logs_k[key]) and torch.isfinite(logs_p[key])):
+            raise AssertionError(f"{what}: {key} not finite ({a}, {b})")
+        loss_rel[key] = abs(a - b) / max(abs(b), 1e-12)
+    rel = {n: (g_k[n] - g_p[n]).norm().item() / max(g_p[n].norm().item(),
+                                                     1e-30) for n in g_p}
+    total = (sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p).sqrt()
+             / sum((g_p[n] ** 2).sum() for n in g_p).sqrt()).item()
+    median = statistics.median(rel.values())
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {what}: losses kernels vs plain rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in loss_rel.items())
+        + f" (limit {loss_limit:g}); head gradient rel L2 over all "
+        f"{len(rel)} parameters {total:.2e} (limit {total_limit:g}), median "
+        f"parameter {median:.2e} (limit {median_limit:g}), largest "
+        + ", ".join(f"{n} {v:.2e}" for n, v in worst)
+        + f" (limit {grad_limit:g}); loss "
+        f"{float(logs_k['train_matching_loss']):.4f}")
+    if not (max(loss_rel.values()) <= loss_limit and total <= total_limit
+            and median <= median_limit and max(rel.values()) <= grad_limit):
+        raise AssertionError(f"{what}: kernels disagree with plain versions")
+    return max(loss_rel.values()), total
+
+
+def phase_align_train(card):
+    import dataclasses
+    import torch
+    from refign_tpu_torch.alignment.trainer import draw_align, train_step
+    from refign_tpu_torch.entry import (UAWARPC_STAGE1, align_train_step,
+                                        build_align_trainer)
+    from refign_tpu_torch.ops.correlation import (local_correlation,
+                                                  local_correlation_backward)
+    counted = {"local_correlation": local_correlation,
+               "local_correlation_backward": local_correlation_backward}
+
+    # a reduced fp32 step first: kernels against plain versions, tightly
+    # (B=2 pairs loaded at 288^2, cropped to 256^2)
+    cfg32 = dataclasses.replace(UAWARPC_STAGE1, compute_dtype="float32",
+                                crop_after_flow=(256, 256))
+    small = build_align_trainer(1, cfg=cfg32, device="cuda", seed=1)
+    compare_align_step(
+        "VGG-16 + UAWarpC fp32 B=2 288^2 -> 256^2",
+        *align_grads_kernels_vs_plain(small, align_batch(2, 288, 1, "cuda"),
+                                      torch.Generator().manual_seed(1)),
+        ALIGN_FP32_LOSS_REL, ALIGN_FP32_TOTAL_REL, ALIGN_FP32_MEDIAN_REL,
+        ALIGN_FP32_GRAD_REL)
+    del small
+
+    t0 = time.perf_counter()
+    trainer = build_align_trainer(1, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    log(f"  built the stage-1 VGG-16 + UAWarpC trainer in "
+        f"{time.perf_counter() - t0:.1f} s")
+    B, S = ALIGN_TRAIN_B, ALIGN_TRAIN_LOAD
+    batch = align_batch(B, S, 0, "cuda")
+    gen = torch.Generator().manual_seed(0)
+    compare_align_step(
+        f"VGG-16 + UAWarpC bf16 B={B} {S}^2 -> {ALIGN_TRAIN_CROP}^2",
+        *align_grads_kernels_vs_plain(trainer, batch, gen),
+        ALIGN_BF16_LOSS_REL, ALIGN_BF16_TOTAL_REL, ALIGN_BF16_MEDIAN_REL,
+        ALIGN_BF16_GRAD_REL)
+
+    def counted_step(tr, what):
+        draws = draw_align(tr.cfg, B, S, S, gen)
+        for f in counted.values():
+            f.launches = 0
+        logs = train_step(tr, batch, draws)
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in counted.items()}
+        log(f"  launches in one {what} step: {launches}")
+        for name, n in launches.items():
+            if n != ALIGN_TRAIN_LAUNCHES[name]:
+                raise AssertionError(f"{name} launched {n} times in a {what} "
+                                     f"step, expected "
+                                     f"{ALIGN_TRAIN_LAUNCHES[name]}")
+        return launches, logs
+
+    launches, logs = counted_step(trainer, "stage-1")
+    all_logs = [logs]
+    align_train_step(trainer, batch, gen)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        all_logs.append(align_train_step(trainer, batch, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    sec = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [{k: float(v) for k, v in lg.items()} for lg in all_logs]
+    if not all(all(map(lambda v: v == v and abs(v) != float("inf"),
+                       lg.values())) for lg in losses):
+        raise AssertionError(f"non-finite losses: {losses}")
+    log(f"  warm stage-1 step (B={B} {S}^2 -> {ALIGN_TRAIN_CROP}^2): median "
+        f"{sec * 1e3:.1f} ms over {len(times)} "
+        f"({[round(x * 1e3, 1) for x in times]} ms) = {B / sec:.3f} image "
+        f"pairs/s on {card}; peak memory {peak:.2f} GiB")
+    log("  losses (counted step, then the timed steps): " + "; ".join(
+        ", ".join(f"{k} {v:.4f}" for k, v in lg.items()) for lg in losses))
+    profile_device(lambda: align_train_step(trainer, batch, gen), sec,
+                   "stage-1 step", top_n=25)
+    del trainer
+
+    stage2 = build_align_trainer(2, device="cuda", seed=2)
+    _, logs = counted_step(stage2, "stage-2")
+    logs = {k: float(v) for k, v in logs.items()}
+    if not all(v == v and abs(v) != float("inf") for v in logs.values()):
+        raise AssertionError(f"stage-2 losses not finite: {logs}")
+    log("  stage-2 step losses: " + ", ".join(f"{k} {v:.4f}"
+                                              for k, v in logs.items()))
+    del stage2
+    return launches, sec, peak
+
+
 KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 sra_attention", ("sra_attention_kernel",)),
     ("K1 backward", ("attn_bwd_",)),
     ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
     ("K2 backward", ("dwconv_bwd_",)),
+    ("K3 backward", ("raw_grad_kernel", "input_grad_kernel")),
     ("K3 local_correlation", ("local_correlation",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
@@ -1077,6 +1413,11 @@ def main() -> int:
     train_launches, train_sec, peak = phase_train(card)
     for name in ("sra_attention_backward", "dwconv3x3_gelu_backward"):
         launches[name] = train_launches[name]
+    log("[6b/7] UAWarpC train step, stage 1")
+    align_launches, align_train_sec, align_peak = phase_align_train(card)
+    launches["local_correlation_backward"] = align_launches[
+        "local_correlation_backward"]
+    train_launches["local_correlation_backward"] = 0
 
     log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
     sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
@@ -1093,7 +1434,10 @@ def main() -> int:
                    "refign_tpu/ops/attention.py:183"),
                "dwconv3x3_gelu_backward": (
                    "refign_tpu_torch/csrc/dwconv3x3_gelu_backward.cu",
-                   "refign_tpu/ops/dwconv.py:162")}
+                   "refign_tpu/ops/dwconv.py:162"),
+               "local_correlation_backward": (
+                   "refign_tpu_torch/csrc/local_correlation_backward.cu",
+                   "refign_tpu/ops/correlation.py:135")}
     kernels = []
     for name, (src, replaces) in sources.items():
         main_rows = [r for r in rows if r["name"] == name
@@ -1110,6 +1454,7 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             launches_train_step=train_launches[name],
+            launches_align_train_step=ALIGN_TRAIN_LAUNCHES.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
             ms=ms, plain_ms=per_call("plain_ms"), bound_ms=bound,
@@ -1123,6 +1468,26 @@ def main() -> int:
         "backward (device time) over their 104 launches in one B=4 1024^2 "
         "train step "
         f"({train_sec * 1e3:.1f} ms, peak memory {peak:.1f} GiB)")
+    log(f"  local_correlation_backward per stage-1 UAWarpC step: 9 launches "
+        f"(B={ALIGN_TRAIN_B} {ALIGN_TRAIN_LOAD}^2 -> {ALIGN_TRAIN_CROP}^2, "
+        f"{align_train_sec * 1e3:.1f} ms a step, "
+        f"{ALIGN_TRAIN_B / align_train_sec:.3f} image pairs/s, peak memory "
+        f"{align_peak:.2f} GiB)")
+    for kind in ("align-train", "raw-train"):
+        part = [r for r in rows if r["name"] == "local_correlation"
+                and r["kind"] == kind]
+        k_ms, k_bound, k_plain = (
+            sum(r[k] * ALIGN_TRAIN_PASSES for r in part)
+            for k in ("ms", "bound_ms", "plain_ms"))
+        log(f"  local_correlation {kind} per stage-1 step (9 launches): "
+            f"{k_ms:.3f} ms, bound {k_bound:.4f} ms "
+            f"({100 * k_bound / k_ms:.1f} % of it), plain {k_plain:.3f} ms")
+        if kind == "align-train":
+            k3_align_train = dict(ms_align_train_step=k_ms,
+                                  bound_ms_align_train_step=k_bound,
+                                  plain_ms_align_train_step=k_plain)
+    next(k for k in kernels if k["name"] == "local_correlation").update(
+        k3_align_train)
     raw = [r for r in rows if r["name"] == "local_correlation"
            and r["kind"] == "raw"]
     raw_ms, raw_bound = (sum(r[k] for r in raw) for k in ("ms", "bound_ms"))

@@ -21,13 +21,22 @@ attention, fp32 masters, remat), its EMA teacher, the frozen ImageNet
 backbone copy, the frozen alignment network and AdamW with the
 warmup-poly schedule, all from a seed; ``uda_train_step`` takes one step
 on a batch, its random draws made from a host generator.
+
+UAWarpC alignment training (counterpart of ``make_align_train_step`` with
+the ``configs/megadepth/uawarpc_stage{1,2}.yaml`` settings):
+``build_align_trainer`` builds the frozen VGG-16 and the UAWarpC head
+(fp32 masters) and Adam with MultiStepLR, from a seed;
+``align_train_step`` takes one step on a batch of image pairs, its random
+draws made from a host generator.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from .alignment import trainer as align_trainer
 from .alignment.trainer import AlignmentNet, align_forward as _align_forward
 from .models.heads.daformer import DAFormerHead
 from .models.heads.segformer import SegFormerHead
@@ -36,7 +45,7 @@ from .models.mix_transformer import MixVisionTransformer
 from .models.segmentor import Segmentor, slide_inference
 from .models.vgg import VGG
 from .parallel.mesh import cast_floating
-from .train.optim import make_uda_optimizer
+from .train.optim import make_adam_optimizer, make_uda_optimizer
 from .uda.refine import refine
 from .uda.trainer import (UDAConfig, UDATrainer, align_fn, draw_step,
                           init_uda_state, train_step)
@@ -54,6 +63,27 @@ UDA_BASE_LR = 6e-4
 UDA_WEIGHT_DECAY = 0.01
 UDA_POLY_POWER = 1.0
 UDA_BACKBONE_LR_FACTOR = 0.1
+
+# configs/megadepth/uawarpc_stage1.yaml as tasks/align_task.py reads it:
+# 750^2 loads, the prime's ColorJitter 0.6/0.6/0.6/0, ChannelShuffle and
+# GaussianBlur(p 0.2, k 7, sigma 0.2-2), CompositeFlow, CenterCrop 520,
+# bf16 compute, remat_modules
+UAWARPC_STAGE1 = align_trainer.AlignConfig(
+    prime_jitter=(0.6, 0.6, 0.6, 0.0), prime_channel_shuffle=True,
+    prime_blur=(0.2, 7, 0.2, 2.0), crop_after_flow=(520, 520),
+    remat_modules=True)
+# uawarpc_stage2.yaml: the visibility mask, larger perturbations and the
+# elastic flow
+UAWARPC_STAGE2 = dataclasses.replace(
+    UAWARPC_STAGE1, visibility_mask=True, random_t_hom=0.4,
+    random_t_tps=0.4, random_t_tps_for_afftps=0.26, add_elastic=True)
+# each stage: the step's settings, and Adam's rate, L2 decay and
+# MultiStepLR milestones
+ALIGN_STAGES = {
+    1: (UAWARPC_STAGE1, 1e-4, 4e-4, (250000, 325000)),
+    2: (UAWARPC_STAGE2, 5e-5, 4e-4, (100000, 150000, 200000)),
+}
+ALIGN_LR_GAMMA = 0.5
 
 
 def _resolve_device(device) -> torch.device:
@@ -200,3 +230,51 @@ def uda_train_step(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
     batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
     draws = draw_step(trainer.cfg, batch, generator)
     return train_step(trainer, batch, draws)
+
+
+def build_align_trainer(stage: int = 1, model_type: str = "vgg16",
+                        cfg: Optional[align_trainer.AlignConfig] = None,
+                        device="cuda", seed: int = 0
+                        ) -> align_trainer.AlignTrainer:
+    """A UAWarpC trainer on ``device`` with weights drawn from ``seed``.
+
+    The settings are those of ``uawarpc_stage{stage}.yaml``: the frozen
+    VGG (``model_type``, VGG-16 in both stages) with ``out_indices`` (2, 3,
+    4) in the compute dtype, the UAWarpC head with ``in_index`` (0, 1) and
+    uncertainty estimation (fp32 masters, train mode, ``remat_modules``
+    per ``cfg``), Adam with the stage's rate and L2 decay 4e-4, and
+    MultiStepLR (gamma 0.5) at the stage's milestones.  ``cfg`` (default
+    the stage's) sets the step's options, the compute dtype among them."""
+    if stage not in ALIGN_STAGES:
+        raise ValueError(f"stage must be 1 or 2, got {stage}")
+    stage_cfg, lr, wd, milestones = ALIGN_STAGES[stage]
+    cfg = stage_cfg if cfg is None else cfg
+    dev = _resolve_device(device)
+    backbone = VGG(model_type, out_indices=(2, 3, 4))
+    head = UAWarpCHead(in_index=(0, 1), estimate_uncertainty=True,
+                       remat_modules=cfg.remat_modules)
+    gen = torch.Generator().manual_seed(seed)
+    backbone.init_weights(gen)
+    head.init_weights(gen)
+    backbone.to(dev)
+    head.to(dev)
+    opt, sched = make_adam_optimizer(head.parameters(), lr, milestones,
+                                     gamma=ALIGN_LR_GAMMA, weight_decay=wd)
+    state = align_trainer.init_align_state(backbone, head, opt, sched,
+                                           cfg.dtype)
+    return align_trainer.AlignTrainer(cfg, state)
+
+
+def align_train_step(trainer: align_trainer.AlignTrainer,
+                     batch: Dict[str, torch.Tensor],
+                     generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One UAWarpC step in place on ``trainer``.  ``batch``: ``image_ref``
+    and ``image_trg`` (B, H, W, 3), uint8 (normalised on the device) or
+    normalised floats, moved to the trainer's device; ``generator``: a CPU
+    generator for the step's random draws.  Returns ``train_matching_loss``,
+    ``loss_ss`` and ``loss_us`` as 0-d tensors on the device."""
+    dev = next(trainer.state.head.parameters()).device
+    batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+    B, H, W = batch["image_trg"].shape[:3]
+    draws = align_trainer.draw_align(trainer.cfg, B, H, W, generator)
+    return align_trainer.train_step(trainer, batch, draws)

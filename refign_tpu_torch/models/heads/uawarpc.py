@@ -11,6 +11,13 @@ tensors (counterpart of ``refign_tpu/models/heads/uawarpc.py``).
                refinement
   Per-level uncertainty modules chain a 1-channel log-variance.
 
+In train mode the BatchNorm layers of every decoder, refinement and
+uncertainty module normalise with the batch statistics and update their
+running ones; ``remat_modules`` runs each of those modules under a
+non-reentrant checkpoint (``nn.layers.remat_call``: recomputed in the
+backward, its BN statistics updated once), the JAX head's
+``remat_modules``; the iterative refinement is eval-only.
+
 dtype boundaries as in the JAX head: correlations run in fp32 and are cast
 to the compute dtype (that of the features; the local correlations are
 written in it by the kernel); decoders run in the compute
@@ -26,7 +33,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from ...nn.layers import conv2d, init_convs_torch_default_
+from ...nn.layers import conv2d, init_convs_torch_default_, remat_call
 from ...ops.correlation import (global_correlation_relu_l2norm,
                                 local_correlation_relu_l2norm)
 from ...ops.resize import interpolate
@@ -60,9 +67,11 @@ class UAWarpCHead(nn.Module):
 
     def __init__(self, in_index: Sequence[int] = (0, 1),
                  estimate_uncertainty: bool = True,
-                 iterative_refinement: bool = False):
+                 iterative_refinement: bool = False,
+                 remat_modules: bool = False):
         super().__init__()
         self.in_index = list(in_index)
+        self.remat_modules = remat_modules
         self.estimate_uncertainty = estimate_uncertainty
         self.iterative_refinement = iterative_refinement
         local_in = PATCH * PATCH + 2 + (1 if estimate_uncertainty else 0)
@@ -83,6 +92,13 @@ class UAWarpCHead(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """torch's conv default, BN ones/zeros (the JAX head's init)."""
         init_convs_torch_default_(self, generator)
+
+    def _run(self, module: nn.Module, *args):
+        """A decoder, refinement or uncertainty module, checkpointed where
+        ``remat_modules`` and grad are on."""
+        if self.remat_modules and torch.is_grad_enabled():
+            return remat_call(module, *args)
+        return module(*args)
 
     def forward(self, trg, src, trg_256, src_256, out_size: Tuple[int, int]):
         """Two-level pyramids of target and source at the image scale (1/4,
@@ -121,11 +137,12 @@ class UAWarpCHead(nn.Module):
         if (h4, w4) != (GLOBAL_GRID, GLOBAL_GRID):
             raise ValueError(f"level-4 features must be 16x16, got {h4}x{w4}")
         corr4 = global_correlation_relu_l2norm(c24, c14).to(cdt)
-        est_map4, x4 = self.decoder4(corr4)
+        est_map4, x4 = self._run(self.decoder4, corr4)
         flow4_256 = unnormalize_mapping_to_flow(est_map4.float())
         flow4_256 = _scale_flow(flow4_256, w_256 / w4, h_256 / h4)
         if uncert:
-            u4_256 = um4(corr4, x4).float() + 2 * math.log(w_256 / w4)
+            u4_256 = (self._run(um4, corr4, x4).float()
+                      + 2 * math.log(w_256 / w4))
 
         # ---- level 3: 32x32 local correlation ----
         h3, w3 = c13.shape[1:3]
@@ -136,11 +153,14 @@ class UAWarpCHead(nn.Module):
         warp3 = warp(c23, _scale_flow(up_flow4, w3 / w_256, h3 / h_256))
         corr3 = local_correlation_relu_l2norm(c13, warp3, PATCH,
                                               out_dtype=cdt)
-        res_flow3, x3 = self.decoder3(decoder_input(corr3, up_flow4, up_u4))
-        res_flow3 = res_flow3 + self.refinement_module_adaptive(x3)
+        res_flow3, x3 = self._run(self.decoder3,
+                                  decoder_input(corr3, up_flow4, up_u4))
+        res_flow3 = res_flow3 + self._run(self.refinement_module_adaptive,
+                                          x3)
         flow3 = res_flow3.float() + up_flow4
         if uncert:
-            u3 = um3(corr3, x3, up_u4.to(cdt), up_flow4.to(cdt)).float()
+            u3 = self._run(um3, corr3, x3, up_u4.to(cdt),
+                           up_flow4.to(cdt)).float()
         # level-3 flow (and uncertainty) to image-resolution units
         flow3 = _scale_flow(flow3, w_orig / w_256, h_orig / h_256)
         if uncert:
@@ -174,10 +194,12 @@ class UAWarpCHead(nn.Module):
         warp2 = warp(c22, _scale_flow(up_flow3, w2 / w_orig, h2 / h_orig))
         corr2 = local_correlation_relu_l2norm(c12, warp2, PATCH,
                                               out_dtype=cdt)
-        res_flow2, x2 = self.decoder2(decoder_input(corr2, up_flow3, up_u3))
+        res_flow2, x2 = self._run(self.decoder2,
+                                  decoder_input(corr2, up_flow3, up_u3))
         flow2 = res_flow2.float() + up_flow3
         if uncert:
-            u2 = um2(corr2, x2, up_u3.to(cdt), up_flow3.to(cdt)).float()
+            u2 = self._run(um2, corr2, x2, up_u3.to(cdt),
+                           up_flow3.to(cdt)).float()
 
         # ---- level 1: 1/4 of the image ----
         h1, w1 = c11.shape[1:3]
@@ -187,14 +209,15 @@ class UAWarpCHead(nn.Module):
         warp1 = warp(c21, _scale_flow(up_flow2, w1 / w_orig, h1 / h_orig))
         corr1 = local_correlation_relu_l2norm(c11, warp1, PATCH,
                                               out_dtype=cdt)
-        res_flow1, x1 = self.decoder1(
-            decoder_input(corr1, up_flow2, up_u2, up_feat2))
-        res_flow1 = res_flow1 + self.refinement_module_finest(x1)
+        res_flow1, x1 = self._run(
+            self.decoder1, decoder_input(corr1, up_flow2, up_u2, up_feat2))
+        res_flow1 = res_flow1 + self._run(self.refinement_module_finest, x1)
         flow1 = res_flow1.float() + up_flow2
 
         flow4 = _scale_flow(flow4_256, w_orig / w_256, h_orig / h_256)
         if uncert:
-            u1 = um1(corr1, x1, up_u2.to(cdt), up_flow2.to(cdt)).float()
+            u1 = self._run(um1, corr1, x1, up_u2.to(cdt),
+                           up_flow2.to(cdt)).float()
             u4 = u4_256 + diag_ratio_log
             return [(flow4, u4), (flow3, u3), (flow2, u2), (flow1, u1)]
         return [flow4, flow3, flow2, flow1]

@@ -2,8 +2,11 @@
 (counterpart of ``refign_tpu/models/matching_modules.py``).
 
 The residual-skip flow decoder, the dilated refinement module and the
-correlation-uncertainty module.  Activation LeakyReLU(0.1), eval-mode
-BatchNorm (the reference's ``batch_norm=True``; no config turns it off).
+correlation-uncertainty module.  Activation LeakyReLU(0.1), BatchNorm (the
+reference's ``batch_norm=True``; no config turns it off): on its running
+statistics in eval mode, on the batch's in train mode, where it updates the
+running ones (UAWarpC training, ``refign_tpu/models/matching_modules.py``
+with ``train=True``).
 The decoders take their input width, as torch layers do; the parameter
 names are those of the JAX modules, so ``load_jax_variables`` fills them.
 
@@ -11,7 +14,10 @@ The uncertainty module treats the (B,H,W,S*S) correlation volume as B*H*W
 little SxS images, at S = 16 and at S = 9 alike (the reference form).  The
 JAX package computes S = 9 as a Toeplitz matmul with a packed BatchNorm
 (``_PatchConv``/``_PackedBN``), a TPU workaround; here it is an ordinary
-conv and BN on the little images, with the same parameters.
+conv and BN on the little images, with the same parameters.  In train mode
+the BN statistics are over the same samples as the packed form's (every
+output position of every pixel's little image); the packed form applies
+the bf16 affine in bf16, this one in fp32.
 """
 from __future__ import annotations
 

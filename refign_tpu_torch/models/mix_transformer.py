@@ -23,11 +23,9 @@ from typing import List, Optional
 
 import torch
 from torch import nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from ..nn.layers import (DropPath, Linear, TorchConv, TorchLayerNorm,
-                         conv2d, kaiming_normal_fanout_, normal_)
+                         conv2d, kaiming_normal_fanout_, normal_, remat_call)
 from ..ops.attention import sra_attention
 from ..ops.dwconv import dwconv3x3_gelu
 
@@ -133,21 +131,6 @@ class Block(nn.Module):
     def masks(self, x: torch.Tensor, generator: Optional[torch.Generator]):
         return (self.drop_path.mask(x, generator),
                 self.drop_path.mask(x, generator))
-
-
-def remat_call(module: nn.Module, *args):
-    """``module(*args)`` recomputed in the backward (non-reentrant
-    checkpoint).  The module's current parameters, which under
-    ``torch.func.functional_call`` are the caller's cast copies, are passed
-    as inputs, so the recompute, which runs after that call has returned,
-    uses the same tensors and their gradients reach the caller."""
-    names, values = zip(*module.named_parameters())
-    n = len(args)
-
-    def run(*a):
-        return functional_call(module, dict(zip(names, a[n:])), a[:n])
-
-    return checkpoint(run, *args, *values, use_reentrant=False)
 
 
 class OverlapPatchEmbed(nn.Module):

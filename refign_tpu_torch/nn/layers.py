@@ -16,25 +16,31 @@ Numerics kept from the JAX package:
   running ones with the unbiased variance; ``groups > 1`` and sync-BN are
   not ported.
 * ``DropPath`` and ``Dropout2d`` draw from an explicit ``torch.Generator``
-  and are the identity without one, as the JAX modules are without an rng
-  (``deterministic``).
+  passed to them in train mode, where a rate > 0 needs one.
+* :func:`remat_call` recomputes a module in the backward (non-reentrant
+  checkpoint) and updates its BatchNorm running statistics once, in the
+  forward, as JAX's ``nn.remat`` returns ``batch_stats`` once.
 * ``gelu`` is the exact erf form; ``leaky_relu`` has slope 0.1, as in
   the matching modules.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
     "gelu", "leaky_relu", "Linear", "TorchLayerNorm", "TorchBatchNorm",
     "TorchConv", "conv2d", "ConvBNReLU", "MLPEmbed", "DropPath", "Dropout2d",
     "normal_", "uniform_", "kaiming_normal_fanout_", "torch_default_init_",
     "init_convs_torch_default_", "init_convs_kaiming_fanout_",
+    "remat_call",
 ]
 
 
@@ -375,3 +381,41 @@ class Dropout2d(nn.Module):
         keep = _keep_mask(x, (x.shape[0], 1, 1, x.shape[-1]), self.rate,
                           generator)
         return x * keep / (1.0 - self.rate)
+
+
+@contextlib.contextmanager
+def _frozen_bn_stats(module: nn.Module):
+    """Within the block, the BatchNorm layers of ``module`` leave their
+    running statistics as they are."""
+    bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+    saved = [m.update_stats for m in bns]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, saved):
+            m.update_stats = flag
+
+
+def remat_call(module: nn.Module, *args):
+    """``module(*args)`` recomputed in the backward (non-reentrant
+    checkpoint).  The module's current parameters, which under
+    ``torch.func.functional_call`` are the caller's cast copies, are passed
+    as inputs, so the recompute, which runs after that call has returned,
+    uses the same tensors and their gradients reach the caller.  The
+    recompute leaves BatchNorm running statistics alone: train-mode BN
+    updates them in its forward, and a second update would count the
+    batch twice."""
+    names, values = zip(*module.named_parameters())
+    n = len(args)
+    calls = []
+
+    def run(*a):
+        frozen = (_frozen_bn_stats(module) if calls
+                  else contextlib.nullcontext())
+        calls.append(None)
+        with frozen:
+            return functional_call(module, dict(zip(names, a[n:])), a[:n])
+
+    return checkpoint(run, *args, *values, use_reentrant=False)

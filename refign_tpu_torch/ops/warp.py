@@ -13,8 +13,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "grid_sample", "warp", "flow_to_mapping", "mapping_to_flow",
-    "unnormalize_mapping_to_flow", "gt_correspondence_mask",
+    "grid_sample", "warp", "warp_window", "flow_to_mapping",
+    "mapping_to_flow", "unnormalize_mapping_to_flow", "gt_correspondence_mask",
     "confidence_from_logvar",
 ]
 
@@ -42,6 +42,18 @@ def _base_grid(H: int, W: int, dtype: torch.dtype,
     return torch.stack([xx, yy], dim=-1)
 
 
+def _sample(x: torch.Tensor, vgrid: torch.Tensor, H: int, W: int,
+            padding_mode: str):
+    """Bilinear samples of x at the pixel coordinates vgrid (B,h,w,2) of
+    an H x W image (align_corners=True), and the strictly-in-bounds mask
+    of those coordinates."""
+    gx = 2.0 * vgrid[..., 0] / max(W - 1, 1) - 1.0
+    gy = 2.0 * vgrid[..., 1] / max(H - 1, 1) - 1.0
+    out = grid_sample(x, torch.stack([gx, gy], dim=-1), align_corners=True,
+                      padding_mode=padding_mode)
+    return out, (gx > -1) & (gx < 1) & (gy > -1) & (gy < 1)
+
+
 def warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros",
          return_mask: bool = False):
     """Backward-warp x (B,H,W,C) by the pixel flow (B,H,W,2).
@@ -50,13 +62,24 @@ def warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros",
     mask (B,H,W) is the strictly-in-bounds test of the sample grid."""
     H, W = flow.shape[1:3]
     vgrid = _base_grid(H, W, torch.float32, flow.device) + flow.float()
-    gx = 2.0 * vgrid[..., 0] / max(W - 1, 1) - 1.0
-    gy = 2.0 * vgrid[..., 1] / max(H - 1, 1) - 1.0
-    out = grid_sample(x, torch.stack([gx, gy], dim=-1), align_corners=True,
-                      padding_mode=padding_mode)
-    if return_mask:
-        return out, (gx > -1) & (gx < 1) & (gy > -1) & (gy < 1)
-    return out
+    out, mask = _sample(x, vgrid, H, W, padding_mode)
+    return (out, mask) if return_mask else out
+
+
+def warp_window(x: torch.Tensor, flow: torch.Tensor, top: int, left: int,
+                padding_mode: str = "zeros"):
+    """``warp(x, full_flow, return_mask=True)`` cut to the window of
+    ``flow`` (B,h,w,2), the full flow's values at rows top .. top+h-1 and
+    columns left .. left+w-1, computed from that window alone: output
+    pixel (top+i, left+j) samples the whole image x (B,H,W,C) at its own
+    grid point plus its flow.  Returns (samples (B,h,w,C), mask (B,h,w))."""
+    H, W = x.shape[1:3]
+    h, w = flow.shape[1:3]
+    offset = torch.tensor([left, top], dtype=torch.float32,
+                          device=flow.device)
+    vgrid = _base_grid(h, w, torch.float32, flow.device) + offset \
+        + flow.float()
+    return _sample(x, vgrid, H, W, padding_mode)
 
 
 def flow_to_mapping(flow: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,15 @@
-"""The UDA optimizer and its learning-rate schedule (counterpart of
-``refign_tpu/train/optim.py``).
+"""The optimizers and their learning-rate schedules (counterpart of
+``refign_tpu/train/optim.py``): AdamW with warmup-poly for UDA, and Adam
+with MultiStepLR for UAWarpC training.
+
+UAWarpC (``make_adam_optimizer``): the JAX package chains
+``add_decayed_weights(wd)``, ``scale_by_adam`` and the schedule, so the
+decay is L2 added to the gradient before the moments, the order of
+``torch.optim.Adam``'s ``weight_decay``; every parameter decays.  The
+schedule is MultiStepLR counted in updates: base_lr * gamma^n, n the
+milestones at or below the update count.
+
+UDA:
 
 The JAX package chains ``optax.scale_by_adam`` (eps outside the square
 root, bias-corrected moments), ``add_decayed_weights(wd)`` and
@@ -18,14 +28,15 @@ the JAX schedule is.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 __all__ = ["warmup_poly_lr", "param_group_label", "make_uda_optimizer",
-           "WarmupPolyLR"]
+           "WarmupPolyLR", "multistep_lr", "MultiStepLR",
+           "make_adam_optimizer"]
 
 
 def warmup_poly_lr(step: int, base_lr: float, max_steps: int,
@@ -98,3 +109,42 @@ def make_uda_optimizer(model: nn.Module, base_lr: float,
                          warmup_ratio=warmup_ratio, power=power,
                          min_lr=min_lr)
     return opt, sched
+
+
+def multistep_lr(step: int, base_lr: float, milestones: Sequence[int],
+                 gamma: float = 0.5) -> float:
+    """MultiStepLR at update count ``step`` (the JAX
+    ``multistep_schedule``, in fp32): base_lr * gamma^n, n the number of
+    milestones <= step."""
+    n = sum(int(step >= m) for m in milestones)
+    f = np.float32
+    return float(f(base_lr) * f(gamma ** n))
+
+
+class MultiStepLR:
+    """Sets every group's learning rate for update count ``step``."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, base_lr: float,
+                 milestones: Sequence[int], gamma: float = 0.5):
+        self.optimizer = optimizer
+        self.base_lr = base_lr
+        self.milestones = tuple(milestones)
+        self.gamma = gamma
+
+    def set_step(self, step: int) -> float:
+        lr = multistep_lr(step, self.base_lr, self.milestones, self.gamma)
+        for g in self.optimizer.param_groups:
+            g["lr"] = lr
+        return lr
+
+
+def make_adam_optimizer(params: Iterable[torch.Tensor], base_lr: float,
+                        milestones: Sequence[int], gamma: float = 0.5,
+                        weight_decay: float = 0.0, betas=(0.9, 0.999),
+                        eps: float = 1e-8
+                        ) -> Tuple[torch.optim.Adam, MultiStepLR]:
+    """Adam with L2 ``weight_decay`` on every parameter, and MultiStepLR
+    (uawarpc_stage{1,2}.yaml)."""
+    opt = torch.optim.Adam(list(params), lr=base_lr, betas=betas, eps=eps,
+                           weight_decay=weight_decay)
+    return opt, MultiStepLR(opt, base_lr, milestones, gamma)

@@ -19,8 +19,11 @@ Semantics kept from the JAX package:
   about a tenth of each side and reflect padding, when the step's blur
   coin exceeds 0.5.
 
-``color_jitter_bcsh`` (torchvision semantics) belongs to the alignment
-augmentations and is not ported.
+The alignment step's prime view takes the torchvision-semantics jitter
+:func:`color_jitter_bcsh` (multiplicative brightness, contrast and
+saturation blended with the grey image, hue; the four in a random order,
+an op whose strength is 0 left out), drawn by :func:`draw_jitter_bcsh`,
+and the blur with an explicit ``kernel_size``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["DACSDraws", "JitterFactors", "draw_dacs", "draw_jitter",
+           "draw_jitter_bcsh", "color_jitter_bcsh",
            "get_class_masks", "one_mix", "color_jitter_image",
            "gaussian_blur_image", "gauss_kernel_size", "dacs_mix", "denorm",
            "renorm"]
@@ -204,6 +208,58 @@ def color_jitter_image(img: torch.Tensor,
     ops = (brightness, contrast, saturation, hue)
     for i in factors.order:
         img = ops[i](img)
+    return img
+
+
+# ---------------------------------------------------------------------------
+# colour jitter (torchvision semantics) on one denormalised (H, W, 3) image
+# ---------------------------------------------------------------------------
+
+def draw_jitter_bcsh(generator: torch.Generator, b: float, c: float,
+                     s: float, h: float) -> JitterFactors:
+    """Factors of torchvision's ColorJitter(b, c, s, h): U(max(0, 1-v),
+    1+v) for the first three, U(-h, h) for hue, and a random order."""
+    fb = _uniform(generator, max(0.0, 1 - b), 1 + b)
+    fc = _uniform(generator, max(0.0, 1 - c), 1 + c)
+    fs = _uniform(generator, max(0.0, 1 - s), 1 + s)
+    fh = _uniform(generator, -h, h)
+    order = tuple(int(i) for i in torch.randperm(4, generator=generator))
+    return JitterFactors(fb, fc, fs, fh, order)
+
+
+def _grayscale(img: torch.Tensor) -> torch.Tensor:
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype,
+                     device=img.device)
+    return (img * w).sum(-1, keepdim=True)
+
+
+def color_jitter_bcsh(img: torch.Tensor, factors: JitterFactors, b: float,
+                      c: float, s: float, h: float) -> torch.Tensor:
+    """torchvision ColorJitter(b, c, s, h) on one denormalised (H, W, 3)
+    image in [0, 1] with drawn ``factors``: brightness clamp(x * fb),
+    contrast clamp(x * fc + mean(grey) * (1 - fc)), saturation
+    clamp(x * fs + grey * (1 - fs)), hue a shift of fh of the circle; in
+    ``factors.order``, an op with strength 0 left out."""
+    def brightness(x):
+        return (x * factors.brightness).clamp(0.0, 1.0)
+
+    def contrast(x):
+        mean = _grayscale(x).mean()
+        return (x * factors.contrast + mean * (1.0 - factors.contrast)
+                ).clamp(0.0, 1.0)
+
+    def saturation(x):
+        return (x * factors.saturation
+                + _grayscale(x) * (1.0 - factors.saturation)).clamp(0.0, 1.0)
+
+    def hue(x):
+        return _adjust_hue(x, factors.hue)
+
+    ops = [(brightness, b), (contrast, c), (saturation, s), (hue, h)]
+    for i in factors.order:
+        op, strength = ops[i]
+        if strength:
+            img = op(img)
     return img
 
 

@@ -13,8 +13,9 @@ package).  Each key of the module's ``state_dict`` names its flax leaf:
 
 ``load_uda_state`` carries a whole JAX ``UDATrainState`` across (student,
 teacher, ImageNet copy, step, and the optax Adam moments and count into the
-torch AdamW state); the optax state is read by its field names, so nothing
-of optax is imported.
+torch AdamW state), and ``load_align_state`` a JAX ``AlignTrainState``
+(head, frozen backbone, step, Adam); the optax state is read by its field
+names, so nothing of optax is imported.
 """
 from __future__ import annotations
 
@@ -162,15 +163,22 @@ def load_uda_state(trainer, state) -> None:
             "params": state.imnet_params,
             "batch_stats": state.imnet_batch_stats or {}})
     ts.step = int(np.asarray(state.step))
-    names = {id(p): n for n, p in ts.student.named_parameters()}
+    _load_adam(ts.optimizer, ts.student, state.opt_state)
+
+
+def _load_adam(opt: torch.optim.Optimizer, module: nn.Module,
+               opt_state) -> None:
+    """Every optax ``scale_by_adam`` moment and count in ``opt_state`` (on
+    ``module``'s parameter names) into the torch Adam / AdamW state of
+    ``opt``'s parameters."""
+    names = {id(p): n for n, p in module.named_parameters()}
     moments = {}
-    for adam in _adam_states(state.opt_state):
+    for adam in _adam_states(opt_state):
         count = int(np.asarray(adam.count))
-        mu = params_like(ts.student, adam.mu)
-        nu = params_like(ts.student, adam.nu)
+        mu = params_like(module, adam.mu)
+        nu = params_like(module, adam.nu)
         for key in mu:
             moments[key] = (count, mu[key], nu[key])
-    opt = ts.optimizer
     for group in opt.param_groups:
         for p in group["params"]:
             key = names[id(p)]
@@ -181,3 +189,17 @@ def load_uda_state(trainer, state) -> None:
                 "step": torch.tensor(float(count)),
                 "exp_avg": mu.to(p.device, p.dtype),
                 "exp_avg_sq": nu.to(p.device, p.dtype)}
+
+
+def load_align_state(trainer, state) -> None:
+    """Carry a JAX ``AlignTrainState`` (``refign_tpu/alignment/
+    trainer.py:101-106``) into a port ``AlignTrainer``: the head's
+    parameters and BatchNorm statistics, the frozen backbone's parameters
+    (into its compute dtype), the step, and the torch Adam state from the
+    optax Adam moments and count (``make_adam_optimizer``'s chain)."""
+    ts = trainer.state
+    load_jax_variables(ts.head, {"params": state.params,
+                                 "batch_stats": state.batch_stats or {}})
+    load_jax_variables(ts.backbone, {"params": state.backbone_params})
+    ts.step = int(np.asarray(state.step))
+    _load_adam(ts.optimizer, ts.head, state.opt_state)

@@ -91,8 +91,6 @@ def test_off_cpu_launches_or_raises():
     """Off the CPU the wrapper never takes the plain version: inputs the
     kernel does not take raise before any build."""
     t = _meta(1, 4, 5, 6)
-    with pytest.raises(NotImplementedError, match="UAWarpC training"):
-        tc.local_correlation(_meta(1, 4, 5, 6, requires_grad=True), t, 9)
     with pytest.raises(TypeError):
         tc.local_correlation(t.half(), t.half(), 9)
     with pytest.raises(TypeError):
@@ -102,6 +100,37 @@ def test_off_cpu_launches_or_raises():
     for P in (4, 11):
         with pytest.raises(ValueError, match="odd"):
             tc.local_correlation(t, t, P)
+
+
+def test_off_cpu_grad_goes_through_both_kernels(monkeypatch):
+    """Off the CPU an input that requires grad goes through the
+    autograd.Function: the forward launches the forward kernel and the
+    backward the backward kernel, asked only for the gradients needed
+    (the launches are recorded here in place of the kernels)."""
+    calls = []
+
+    def fake_launch(t, s, P, fused, out_dtype):
+        calls.append(("forward", P, fused, out_dtype))
+        return torch.empty(t.shape[:3] + (P * P,), dtype=out_dtype,
+                           device=t.device)
+
+    def fake_backward(t, s, g, P, fused, need_t, need_s):
+        calls.append(("backward", P, fused, need_t, need_s))
+        return (torch.empty_like(t) if need_t else None,
+                torch.empty_like(s) if need_s else None)
+
+    monkeypatch.setattr(tc, "_launch", fake_launch)
+    monkeypatch.setattr(tc, "local_correlation_backward", fake_backward)
+    t = _meta(1, 4, 5, 6)
+    s = _meta(1, 4, 5, 6, requires_grad=True)
+    out = tc.local_correlation(t, s, 9)
+    assert out.grad_fn is not None
+    out = tc.local_correlation_relu_l2norm(t, s, 9, torch.bfloat16)
+    (gs,) = torch.autograd.grad(out.float().sum(), s)
+    assert calls == [("forward", 9, False, torch.float32),
+                     ("forward", 9, True, torch.bfloat16),
+                     ("backward", 9, True, False, True)]
+    assert gs.shape == (1, 4, 5, 6)
 
 
 @pytest.mark.parametrize("P", [9, 5])

@@ -155,7 +155,10 @@ def test_fused_refusals():
     t, s = map(torch.from_numpy, _pair(1, 4, 5, 6, seed=4))
     with pytest.raises(TypeError, match="out_dtype"):
         tc.local_correlation_relu_l2norm(t, s, 9, out_dtype=torch.float16)
-    meta = torch.empty((1, 4, 5, 6), device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="UAWarpC training"):
-        tc.local_correlation_relu_l2norm(meta, meta.detach(), 9,
+    meta = torch.empty((1, 4, 5, 6), device="meta")
+    with pytest.raises(TypeError, match="out_dtype"):
+        tc.local_correlation_relu_l2norm(meta, meta, 9,
+                                         out_dtype=torch.float16)
+    with pytest.raises(TypeError, match="share a dtype"):
+        tc.local_correlation_relu_l2norm(meta.bfloat16(), meta, 9,
                                          out_dtype=torch.bfloat16)

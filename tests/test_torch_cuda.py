@@ -38,7 +38,7 @@ from refign_tpu_torch.ops.attention import (sra_attention,
                                             sra_attention_forward,
                                             sra_attention_reference)
 from refign_tpu_torch.ops.correlation import (
-    local_correlation, local_correlation_reference,
+    local_correlation, local_correlation_backward, local_correlation_reference,
     local_correlation_relu_l2norm, local_correlation_relu_l2norm_reference)
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                          dwconv3x3_gelu_backward,
@@ -346,14 +346,13 @@ def test_kernels_launch_on_every_device(gen):
 
 def test_local_correlation_kernel_refusals(gen):
     t = torch.randn(1, 4, 5, 6, device="cuda")
-    with pytest.raises(NotImplementedError):
-        local_correlation(t.clone().requires_grad_(), t, 9)
     with pytest.raises(TypeError):
         local_correlation(t, t.bfloat16(), 9)
     with pytest.raises(ValueError):
         local_correlation(t, t, 11)
-    with pytest.raises(NotImplementedError):
-        local_correlation_relu_l2norm(t, t.clone().requires_grad_(), 9)
+    with pytest.raises(ValueError):
+        local_correlation_backward(t, t, torch.zeros(1, 4, 5, 80,
+                                                     device="cuda"), 9)
     with pytest.raises(TypeError):
         local_correlation_relu_l2norm(t, t, 9, out_dtype=torch.float16)
 
@@ -558,3 +557,116 @@ def test_dwconv_backward_keeps_gprime_on_chip(gen):
     dwconv3x3_gelu_backward(x, w, b, g)
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - before < x.numel() * 4
+
+
+def _corr_grad_inputs(gen, B, H, W, C, dtype):
+    """Unit-norm target and source as the head passes them (the source a
+    strided view), with a target pixel of zeros and a source block of
+    zeros wide enough that some pixels' whole 9x9 window left the image:
+    the exact zeros where the ReLU's gradient is 0.5 and the clamp's
+    where the sum of squares is 0."""
+    t = _unit_features(gen, B, H, W, C, torch.float32)
+    s = torch.randn(B, C, H, W, generator=gen, device="cuda")
+    s = (s / s.norm(dim=1, keepdim=True)).permute(0, 2, 3, 1)
+    t[0, H // 2, W // 3] = 0
+    s[:, :min(H, 12), :min(W, 14)] = 0
+    return t.to(dtype), s.to(dtype)
+
+
+def _corr_grad_scale(t, s, g, P, fused):
+    """Per gradient element, two bounds from the plain version, as (gt's,
+    gs's) pairs: the sum of the magnitudes of the fp32 terms it sums (the
+    volume's gradient bounded without cancellation), the scale of its
+    summation error, which clamped pixels (graw ~1e12) leave far above an
+    element where their terms cancel; and, in the fused mode, the sum over
+    the taps whose raw sum lies within fp32 summation noise of 0 (1e-5 of
+    the sum of |t||s|) of their whole term: the ReLU's slope there may
+    differ between the kernel's sums and the plain version's."""
+    g = g.float()
+    gmag, jump = g.abs(), torch.zeros_like(g)
+    if fused:
+        raw = local_correlation_reference(t.float(), s.float(), P)
+        absraw = local_correlation_reference(t.float().abs(),
+                                             s.float().abs(), P)
+        r = raw.clamp_min(0)
+        den = r.square().sum(-1, keepdim=True).clamp_min(1e-24).sqrt()
+        n = r / den
+        slope = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
+        whole = (g.abs() + n * (g * n).sum(-1, keepdim=True).abs()) / den
+        gmag = slope * whole
+        jump = torch.where((raw != 0) & (raw.abs() <= 1e-5 * absraw),
+                           whole, 0.0)
+    ta = t.detach().float().abs().requires_grad_()
+    sa = s.detach().float().abs().requires_grad_()
+    out = local_correlation_reference(ta, sa, P)
+    return (torch.autograd.grad(out, (ta, sa), gmag, retain_graph=True),
+            torch.autograd.grad(out, (ta, sa), jump))
+
+
+def _corr_grad_close(got, ref, scale, jump, dtype):
+    """|got - ref| <= 3e-5 * scale + jump (+ 2^-8 |ref| in bf16),
+    finite."""
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref).abs()
+    lim = 3e-5 * scale + jump + (2.0 ** -8 * ref.abs()
+                                 if dtype == torch.bfloat16 else 0.0)
+    assert (err <= lim).all(), (err - lim).max()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,P", [(1, 1, 1, 8, 3), (2, 13, 21, 40, 5),
+                                       (2, 33, 70, 40, 9),
+                                       (1, 32, 32, 256, 9),
+                                       (1, 65, 65, 256, 9),
+                                       (1, 130, 130, 128, 9)])
+def test_local_correlation_backward_through_autograd(gen, fused, dtype, B, H,
+                                                     W, C, P):
+    """Both inputs require grad; one forward and one backward launch; the
+    gradients against autograd of the fp32 plain version (finite where the
+    clamp makes graw ~1e12)."""
+    t, s = _corr_grad_inputs(gen, B, H, W, C, dtype)
+    t.requires_grad_()
+    s.requires_grad_()
+    out_dtype = dtype if fused else torch.float32
+    g = torch.randn(B, H, W, P * P, generator=gen, device="cuda").to(out_dtype)
+    fwd, bwd = local_correlation.launches, local_correlation_backward.launches
+    out = (local_correlation_relu_l2norm(t, s, P, out_dtype) if fused
+           else local_correlation(t, s, P))
+    out.backward(g)
+    assert local_correlation.launches == fwd + 1
+    assert local_correlation_backward.launches == bwd + 1
+    plain = (local_correlation_relu_l2norm_reference if fused
+             else local_correlation_reference)
+    want = _ref_grads(lambda a, b: plain(a, b, P), (t, s), g)
+    scales, jumps = _corr_grad_scale(t, s, g, P, fused)
+    for got, ref, scale, jump in zip((t.grad, s.grad), want, scales, jumps):
+        _corr_grad_close(got, ref, scale, jump, dtype)
+
+
+def test_local_correlation_backward_forms_only_needed_grads(gen):
+    """A frozen target: the backward forms the source gradient alone."""
+    t, s = _corr_grad_inputs(gen, 2, 20, 24, 32, torch.bfloat16)
+    s.requires_grad_()
+    g = torch.randn(2, 20, 24, 81, generator=gen, device="cuda").bfloat16()
+    out = local_correlation_relu_l2norm(t, s, 9, torch.bfloat16)
+    (gs,) = torch.autograd.grad(out, s, g)
+    want = _ref_grads(lambda a, b: local_correlation_relu_l2norm_reference(
+        a, b, 9), (t, s), g)[1]
+    scales, jumps = _corr_grad_scale(t, s, g, 9, True)
+    _corr_grad_close(gs, want, scales[1], jumps[1], torch.bfloat16)
+    none_t, only_s = local_correlation_backward(t, s, g, 9, True,
+                                                need_t=False)
+    assert none_t is None and torch.equal(only_s, gs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_local_correlation_backward_is_deterministic(gen, dtype):
+    t, s = _corr_grad_inputs(gen, 2, 65, 65, 256, dtype)
+    g = torch.randn(2, 65, 65, 81, generator=gen, device="cuda").to(dtype)
+    for fused in (False, True):
+        gg = g if fused else g.float()
+        first = local_correlation_backward(t, s, gg, 9, fused)
+        second = local_correlation_backward(t, s, gg, 9, fused)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))

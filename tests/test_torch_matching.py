@@ -127,8 +127,13 @@ def test_vgg16_pyramids_match_jax():
 
 @pytest.mark.parametrize("model_type", ["vgg16_bn", "vgg19"])
 def test_vgg_rejects_other_architectures(model_type):
-    with pytest.raises(ValueError, match="only vgg16"):
-        VGG(model_type)
+    """Every configuration of the JAX package's VGG builds (these two
+    since UAWarpC training, tests/test_torch_align_train_ops.py holds them
+    against JAX); an architecture outside that list is refused."""
+    levels = VGG(model_type, out_indices=(2, 3, 4))(torch.zeros(1, 32, 32, 3))
+    assert [f.shape[-1] for f in levels] == [128, 256, 512]
+    with pytest.raises(ValueError, match="unknown VGG"):
+        VGG(model_type.replace("vgg", "resnet"))
 
 
 def _head_inputs(sizes, seed):

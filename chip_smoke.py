@@ -18,10 +18,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    PyTorch library call that computes the same function, where there is
    one; and the K1 and K2 backward kernels against autograd of their plain
    versions at the train step's shapes (bf16, fp32) and ragged ones, and
-   K3's backward at the stage-1 UAWarpC step's three levels (fused bf16,
-   raw) and ragged ones (the kernel, plain and library backwards timed by
+   K3's backward at the stage-1 UAWarpC step's three levels (fused bf16
+   with both gradients, and with gs alone as the path asks; raw) and
+   ragged ones (the kernel, plain and library backwards timed by
    their device time, as the host work of the wrapper and of autograd
-   outlasts their kernels);
+   outlasts their kernels); and, for the lab-only Pallas functions of
+   tools/, their bounds and library calls at their own shapes;
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
@@ -63,8 +65,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    over an align; the backward kernels over the 104 launches of a train
    step, beside SDPA's and cuDNN's forward + backward and the sums of
    their first designs; K3's backward over the 9 launches of a stage-1
-   UAWarpC step), the ``kernels`` JSON line, the card line and, last, the
-   result line.
+   UAWarpC step, both gradients and gs alone, beside its first design),
+   the ``kernels`` JSON line, the card line and, last, the result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -143,12 +145,17 @@ ALIGN_TRAIN_LAUNCHES = {
     "local_correlation_backward": ALIGN_TRAIN_PASSES * len(ALIGN_TRAIN_LEVELS),
 }
 
-# per-step sums (ms, 104 launches each) of the first designs of the
-# backward kernels (K1: fp32 CUDA cores, softmax recomputed in three passes;
-# K2: three kernels through an fp32 g' map), read by this script on an
-# NVIDIA H100 80GB HBM3 at 700 W; phase 7 prints them beside this run's
+# per-step sums (ms) of the first designs of the backward kernels, read by
+# this script on an NVIDIA H100 80GB HBM3 at 700 W; phase 7 prints them
+# beside this run's.  K1 (fp32 CUDA cores, softmax recomputed in three
+# passes) and K2 (three kernels through an fp32 g' map): 104 launches a
+# train step.  K3 (fp32 CUDA cores): 9 launches a stage-1 UAWarpC step,
+# phase 3's fused bf16 rows (both gradients) and its in-path time in phase
+# 6b's profile (gs alone)
 FIRST_BACKWARD_STEP_MS = {"sra_attention_backward": 104.4,
-                          "dwconv3x3_gelu_backward": 49.51}
+                          "dwconv3x3_gelu_backward": 49.51,
+                          "local_correlation_backward": 13.84,
+                          "local_correlation_backward in path": 10.40}
 
 # elementwise bound for a kernel output in bf16 against the fp32 plain
 # version on the same inputs: one bf16 rounding (2^-8 relative) plus fp32
@@ -286,26 +293,63 @@ def time_ms(fn, reps=20, warmup=3, batch=10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, calls=10) -> float:
-    """Device time of one call of ``fn``: the kernels' own time summed by
-    the profiler over ``calls`` calls, divided by ``calls``.  For closures
-    whose host work (autograd's Python and dispatch) can outlast their
-    kernels, where CUDA events around back-to-back calls would time the
-    host."""
+def device_ms_by_kernel(fn, calls=10, expect=None, tries=5) -> dict:
+    """Device time of one call of ``fn`` by device kernel name, from the
+    profiler over ``calls`` calls after a warm-up step.  A reading is whole
+    when every name was recorded its launches a call times ``calls``: the
+    value of the key of ``expect`` that the name contains, else its count
+    over ``calls`` rounded up.  The profiler can drop a launch's events, or
+    a whole reading's, so a reading that is not whole is taken again, up to
+    ``tries`` times; the last is then corrected (each name's mean time a
+    launch times its launches a call) and the correction logged.  Raises
+    where a name of ``expect`` was not recorded as often as it launches,
+    or where nothing was recorded."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / calls
+    for attempt in range(tries):
+        ready = []  # the reading's events, kept as its cycle ends
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: ready.extend(
+                         p.key_averages())) as prof:
+            for n in (2, calls):  # the warm-up step, then the reading
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own range on the device timeline is no kernel
+        evs = [e for e in ready
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+        per = {e.key: next((v for sub, v in (expect or {}).items()
+                            if sub in e.key), -(-e.count // calls))
+               for e in evs}
+        short = {e.key[:80]: (e.count, per[e.key] * calls) for e in evs
+                 if e.count != per[e.key] * calls}
+        if evs and not short:
+            break
+        log(f"  profiler reading not whole (recorded, launched): "
+            f"{short or 'nothing'}"
+            + (", taken again" if attempt + 1 < tries else ", corrected"))
+    unseen = [sub for sub, v in (expect or {}).items()
+              if (v > 0) != any(sub in e.key for e in evs)]
+    if not evs or unseen or any(e.count > per[e.key] * calls for e in evs):
+        raise AssertionError(f"the profiler recorded {len(evs)} kernels, "
+                             f"{unseen} not as expected ({expect} a call)")
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+            / e.count * per[e.key] / 1e3 for e in evs}
+
+
+def device_ms(fn, calls=10, expect=None) -> float:
+    """Device time of one call of ``fn`` (``device_ms_by_kernel``
+    summed).  For closures whose host work (autograd's Python and
+    dispatch) can outlast their kernels, where CUDA events around
+    back-to-back calls would time the host."""
+    return sum(device_ms_by_kernel(fn, calls, expect).values())
 
 
 def check_close(name, got, ref, rel, abs_):
@@ -646,12 +690,17 @@ def phase_backward_kernels():
                (*lvl, CORR_PATCH), "main", bf16) for lvl in ALIGN_TRAIN_LEVELS]
     cases += [("local_correlation_backward", 0, (*lvl, CORR_PATCH), "raw",
                bf16) for lvl in ALIGN_TRAIN_LEVELS]
+    # the path's own call: the target is frozen, so the head's backward asks
+    # for gs alone (fused bf16)
+    cases += [("local_correlation_backward", 0, (*lvl, CORR_PATCH), "path",
+               bf16) for lvl in ALIGN_TRAIN_LEVELS]
     cases += [("local_correlation_backward", 0, (2, 33, 70, 40, 5), kind,
                torch.float32) for kind in ("ragged", "ragged-raw")]
     cases += [("local_correlation_backward", 0, (1, 17, 45, 40, 9), kind,
                bf16) for kind in ("ragged", "ragged-raw")]
 
     for name, n_launch, shape, kind, dtype in cases:
+        expect = None  # the kernels a call launches, where they are known
         if name == "sra_attention_backward":
             B, N, M, H = shape
             q, k, v = attention_case(gen, B, N, M, H, dtype)
@@ -678,18 +727,31 @@ def phase_backward_kernels():
                                   q.element_size())
         elif name == "local_correlation_backward":
             B, H, W, C, P = shape
-            fused = kind in ("main", "ragged")
+            fused = kind in ("main", "ragged", "path")
+            need_t = kind != "path"
             t, s, g = corr_grad_case(gen, B, H, W, C, P, dtype, fused)
             plain_fn = (local_correlation_relu_l2norm_reference if fused
                         else local_correlation_reference)
             refs, plain = grads_of(lambda a, b_: plain_fn(a, b_, P), (t, s),
                                    g)
+            if not need_t:  # the plain backward of gs alone
+                s_in = s.detach().requires_grad_()
+                out = plain_fn(t, s_in, P)
+                plain = lambda: torch.autograd.grad(  # noqa: E731
+                    out, s_in, g, retain_graph=True)
             scales, jumps = corr_grad_scale(t, s, g, P, fused)
-            got = local_correlation_backward(t, s, g, P, fused)
+            got = local_correlation_backward(t, s, g, P, fused, need_t=need_t)
             kernel = lambda: local_correlation_backward(  # noqa: E731
-                t, s, g, P, fused)
+                t, s, g, P, fused, need_t=need_t)
             library = None  # no single PyTorch call computes it
-            nbytes = (4 * B * H * W * C * t.element_size()
+            # a call's kernels: graw's in the fused mode, then the
+            # gradients' (bf16: the tensor-core pair; fp32: the CUDA-core)
+            expect = ({"::graw_kernel<": int(fused), "::grad_kernel<": 1}
+                      if dtype == bf16 else
+                      {"::raw_grad_kernel<": int(fused),
+                       "::input_grad_kernel<": 1})
+            # t, s and g read, each wanted gradient written
+            nbytes = ((3 + need_t) * B * H * W * C * t.element_size()
                       + B * H * W * P * P * g.element_size())
             bnd, bound_by = bound(nbytes, 4.0 * B * H * W * P * P * C,
                                   t.element_size())
@@ -719,7 +781,7 @@ def phase_backward_kernels():
             err = max(check_corr_grad(f"{name}{shape} {kind} d{i}", a, r, sc,
                                       jp, dtype)
                       for i, (a, r, sc, jp) in enumerate(zip(
-                          got, refs, scales, jumps)))
+                          got, refs, scales, jumps)) if a is not None)
             del scales, jumps
         else:
             err = max(check_grad(f"{name}{shape} {kind} d{i}", a, r, dtype)
@@ -731,7 +793,8 @@ def phase_backward_kernels():
         row = dict(name=name, shape=list(shape), kind=kind, mode="",
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
-                   ms=device_ms(kernel), wrapper_ms=time_ms(kernel),
+                   ms=device_ms(kernel, expect=expect),
+                   wrapper_ms=time_ms(kernel),
                    plain_ms=device_ms(plain),
                    library_ms=None if library is None else device_ms(library),
                    bound_ms=bnd, bound_by=bound_by)
@@ -741,6 +804,12 @@ def phase_backward_kernels():
                                  f"device time")
         row["bound_share"] = bnd / row["ms"]
         rows.append(row)
+        if name == "local_correlation_backward" and dtype == bf16:
+            # the bf16 body's two kernels: graw (fused mode), gt and gs
+            split = device_ms_by_kernel(kernel, expect=expect)
+            log(f"  {name} {kind} {shape} by kernel: " + ", ".join(
+                f"{k.split('::')[-1].split('(')[0]} {ms:.4f} ms"
+                for k, ms in sorted(split.items())))
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
         log(f"  {name:26s} {kind:10s} {row['dtype']:8s} {str(shape):22s} "
@@ -750,6 +819,63 @@ def phase_backward_kernels():
             f"{row['plain_ms']:.4f} ms  library {lib}")
         del got, refs, plain, library
     return rows
+
+
+def phase_lab_yardsticks():
+    """The Pallas functions of ``tools/`` that no path runs (L1-L6), at
+    their own production shapes: each one's bound (bytes of its inputs and
+    output over the memory rate, or its products over the bf16 rate) and
+    the time of the one PyTorch call that computes the same function
+    (SDPA for L1-L5; ``F.grid_sample`` in fp32, as ``ops/warp.py`` calls
+    it, for L6), summed over a call of the path each would serve: L1-L5
+    over the 3/6/40/3 blocks of an HRDA* forward's four stages (per 30
+    slide rows), L6 over the 3 head passes of a stage-1 UAWarpC step."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    blocks = [s[0] for s in STAGES]
+
+    def bound(nbytes, flops):
+        return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_TENSOR_FLOPS)
+
+    def attention(BH, N, M, D=64):
+        q = torch.randn(BH, 1, N, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(BH, 1, M, D, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        return ms, bound(2 * BH * (2 * N + 2 * M) * D, 4.0 * BH * N * M * D)
+
+    # L1-L4: tools/attn_kernel_lab.py:268-271, (B*H, N, D, M); L5:
+    # tools/attn_opt_lab.py:44-50, (B, N, H, D, M)
+    labs = {"L1-L4": [attention(BH, N, M) for BH, N, _, M in (
+                (30, 18225, 64, 289), (60, 4624, 64, 289),
+                (150, 1156, 64, 289), (240, 289, 64, 289))],
+            "L5": [attention(B * H, N, M) for B, N, H, _, M in (
+                (30, 18225, 1, 64, 256), (30, 4624, 2, 64, 289),
+                (30, 1156, 5, 64, 289), (30, 289, 8, 64, 289))]}
+    for name, rows in labs.items():
+        ms = sum(n * r[0] for n, r in zip(blocks, rows))
+        bnd = sum(n * r[1] for n, r in zip(blocks, rows))
+        log(f"  {name} (lab) per stage shape: SDPA "
+            f"{[round(r[0], 4) for r in rows]} ms, bound "
+            f"{[round(r[1], 4) for r in rows]} ms; per forward (3/6/40/3 "
+            f"blocks): SDPA {ms:.3f} ms, bound {bnd:.3f} ms")
+    # L6: tools/warp_kernel_lab.py:322-323, the head's feature warps of
+    # the stage-1 step, (B, H, W, C)
+    rows = []
+    for B, H, W, C in ((6, 130, 130, 256), (6, 65, 65, 512)):
+        x = torch.randn(B, C, H, W, generator=gen, device="cuda")
+        grid = torch.rand(B, H, W, 2, generator=gen, device="cuda") * 2 - 1
+        ms = time_ms(lambda: F.grid_sample(x, grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=True))
+        rows.append((ms, bound(4 * (2 * x.numel() + grid.numel()),
+                               8.0 * x.numel())))
+    log(f"  L6 (lab) grid_sample fp32 at (6,130,130,256), (6,65,65,512): "
+        f"{[round(r[0], 4) for r in rows]} ms, bound "
+        f"{[round(r[1], 4) for r in rows]} ms; per stage-1 step (3 passes): "
+        f"{3 * sum(r[0] for r in rows):.3f} ms, bound "
+        f"{3 * sum(r[1] for r in rows):.4f} ms")
 
 
 def plain_versions(enabled: bool):
@@ -1319,7 +1445,8 @@ KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 backward", ("attn_bwd_",)),
     ("K2 dwconv3x3_gelu", ("dwconv3x3_gelu_kernel",)),
     ("K2 backward", ("dwconv_bwd_",)),
-    ("K3 backward", ("raw_grad_kernel", "input_grad_kernel")),
+    ("K3 backward", ("::graw_kernel<", "::grad_kernel<",
+                     "::raw_grad_kernel<", "::input_grad_kernel<")),
     ("K3 local_correlation", ("local_correlation",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
@@ -1404,6 +1531,7 @@ def main() -> int:
         f"backward: {GRAD_REL:g}*max|ref|, + {BF16_REL:g}*|ref| in bf16)")
     rows = phase_kernels()
     rows += phase_backward_kernels()
+    phase_lab_yardsticks()
 
     log("[4/7] HRDA* path")
     launches, sec = phase_main_path(card)
@@ -1488,6 +1616,20 @@ def main() -> int:
                                   plain_ms_align_train_step=k_plain)
     next(k for k in kernels if k["name"] == "local_correlation").update(
         k3_align_train)
+    for kind, what, first in (
+            ("main", "fused bf16, both gradients",
+             "local_correlation_backward"),
+            ("path", "fused bf16, gs alone (the path's call)",
+             "local_correlation_backward in path")):
+        part = [r for r in rows if r["name"] == "local_correlation_backward"
+                and r["kind"] == kind]
+        k_ms, k_bound = (sum(r[k] * ALIGN_TRAIN_PASSES for r in part)
+                         for k in ("ms", "bound_ms"))
+        log(f"  local_correlation_backward {what} per stage-1 step (9 "
+            f"launches): {k_ms:.3f} ms, bound {k_bound:.4f} ms "
+            f"({100 * k_bound / k_ms:.1f} % of it); first design "
+            f"{FIRST_BACKWARD_STEP_MS[first]:.2f} ms"
+            + (" (in-path, phase 6b's profile)" if kind == "path" else ""))
     raw = [r for r in rows if r["name"] == "local_correlation"
            and r["kind"] == "raw"]
     raw_ms, raw_bound = (sum(r[k] for r in raw) for k in ("ms", "bound_ms"))

@@ -4,24 +4,33 @@
     python3 kernel_ab.py OTHER_CHECKOUT
 
 Builds ``refign_tpu_torch/csrc/{sra_attention,dwconv3x3_gelu,
-local_correlation,sra_attention_backward,dwconv3x3_gelu_backward}.cu`` of
+local_correlation,sra_attention_backward,dwconv3x3_gelu_backward,
+local_correlation_backward}.cu`` of
 this checkout and of OTHER_CHECKOUT (for example a ``git archive`` of the
 parent commit) with the same nvcc flags, calls each kernel straight
 through its C entry point (no Python wrapper, so no host time) at the
 shapes of ``chip_smoke.py`` (K1, K2: the four MiT-B5 stages; K3: the three
 UAWarpC levels, raw fp32 mode, with the source as the NHWC view of an NCHW
-tensor; K1 and K2 backward: the four stages of a train-step pass, bf16),
-checks each output against the plain version within ``chip_smoke.py``'s
-limit (bf16 for K1 and K2, 1e-5 for K3, the gradient limit against fp32
-autograd for the backwards), and prints the times of the runs other,
-this, this, other, then the best of each checkout per shape.  K3's fused
+tensor; K1 and K2 backward: the four stages of a train-step pass, bf16;
+K3 backward: the stage-1 UAWarpC step's three levels, fused bf16 with both
+gradients and with gs alone as the path asks), checks each output against
+the plain version within ``chip_smoke.py``'s limit (bf16 for K1 and K2,
+1e-5 for K3, the gradient limits against fp32 autograd for the
+backwards), and prints the times of the runs other, this, this, other,
+then the best of each checkout per shape.  An output beyond its limit is
+printed once (for this checkout's K3 backward with the taps that feed
+each such element and whose raw sum takes another ReLU slope in the kernel
+than in the plain version, also written to ``refign_tpu_torch/build/ab/
+k3_bwd_kink.json``), the timing goes on, and the exit code is 1.  K3's fused
 mode with bf16 output (what the UAWarpC head launches) is checked and
 timed in the same loop, for this checkout alone.  Older sources are
 called by their own signatures, known by a marker: K1's forward without
 the grad-mode statistics; K1's backward without them (it recomputes the
 softmax); K2's forward without the weight strides (given the tap-major
 (9, C) copy of the weights that their wrapper made); K2's backward with
-its fp32 g' map; K3 without its two mode arguments.  This checkout's K1
+its fp32 g' map; K3 without its two mode arguments.  K3's backward has
+kept its C signature since it was added; a checkout without it times the
+other kernels only.  This checkout's K1
 backward reads the statistics of this checkout's grad-mode forward, made
 once per shape outside the timing.
 """
@@ -32,7 +41,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("sra_attention", "dwconv3x3_gelu", "local_correlation",
-           "sra_attention_backward", "dwconv3x3_gelu_backward")
+           "sra_attention_backward", "dwconv3x3_gelu_backward",
+           "local_correlation_backward")
 # a marker of each source's newer C signature: K1's grad-mode statistics
 # (forward and backward), K2's weight strides, K2 backward's scratch query,
 # K3's fused mode
@@ -49,6 +59,8 @@ def build(root, tag):
     procs = {}
     for k in KERNELS:
         src = os.path.join(root, "refign_tpu_torch", "csrc", f"{k}.cu")
+        if not os.path.exists(src):  # a kernel this checkout does not have
+            continue
         out = os.path.join(out_dir, f"{tag}_{k}.so")
         procs[k] = (subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", out, src],
@@ -168,6 +180,90 @@ def k3_call(lib, newer, t, s, o, P, stream, fused=0):
     return lambda: fn(*args)
 
 
+def k3_backward_call(lib, t, s, g, outs, P, stream):
+    """K3's backward, fused mode, bf16 t, s and g, into outs (gt, gs) or
+    (gs,) alone; the fp32 graw scratch is made once with the call."""
+    import torch
+    fn = lib.local_correlation_backward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+    B, H, W, C = t.shape
+    graw = torch.empty((B, H, W, P * P), dtype=torch.float32, device="cuda")
+    gt, gs = outs if len(outs) == 2 else (None, outs[0])
+    args = (t.data_ptr(), s.data_ptr(), g.data_ptr(), graw.data_ptr(),
+            None if gt is None else gt.data_ptr(), gs.data_ptr(), 1, 1, B, H,
+            W, C, P, *t.stride(), *s.stride(), *g.stride(), 1, stream)
+    return lambda keep=graw: fn(*args)
+
+
+def k3_kink_report(lib, grad, got, ref, lim, t, s, P, stream, most=8):
+    """K3-bwd's elements of gradient ``grad`` (0: gt, 1: gs) beyond the
+    limit, at most ``most`` of them: each one's value, reference and limit,
+    and every tap that feeds it whose raw sum takes another ReLU slope in
+    the kernel (the forward's raw sums, which the backward's graw kernel
+    forms bit for bit) than in the plain version, with its exact sum (fp64:
+    the bf16 products and their sum are exact there).  Also written, with
+    the tap's two vectors, to refign_tpu_torch/build/ab/k3_bwd_kink.json."""
+    import json
+    import torch
+    from refign_tpu_torch.ops.correlation import local_correlation_reference
+    B, H, W, C = t.shape
+    R, PP = (P - 1) // 2, P * P
+    plain = local_correlation_reference(t.float(), s.float(), P)
+    kern = torch.empty_like(plain)
+    if k3_call(lib, True, t, s, kern, P, stream)() != 0:
+        raise RuntimeError("K3 launch failed")
+    torch.cuda.synchronize()
+
+    def slope(v):
+        return 1.0 if v > 0 else 0.5 if v == 0 else 0.0
+
+    bad = ((got.float() - ref).abs() > lim).nonzero().tolist()
+    found = []
+    for b, y, x, c in bad[:most]:
+        taps = []
+        for k in range(PP):
+            dy, dx = divmod(k, P)
+            # gt: pixel (y, x)'s own taps; gs: the taps of the target
+            # pixels that see source pixel (y, x)
+            py, px = (y, x) if grad == 0 else (y - dy + R, x - dx + R)
+            sy, sx = py + dy - R, px + dx - R
+            if not (0 <= py < H and 0 <= px < W and 0 <= sy < H
+                    and 0 <= sx < W):
+                continue
+            pl, kn = plain[b, py, px, k].item(), kern[b, py, px, k].item()
+            if slope(pl) == slope(kn):
+                continue
+            tv, sv = t[b, py, px].double(), s[b, sy, sx].double()
+            taps.append(dict(
+                target=[b, py, px], source=[b, sy, sx], tap=k, plain=pl,
+                kernel=kn, exact=(tv * sv).sum().item(),
+                magnitude=(tv * sv).abs().sum().item(),
+                t=tv.tolist(), s=sv.tolist()))
+        found.append(dict(grad="gt" if grad == 0 else "gs",
+                          element=[b, y, x, c], got=got[b, y, x, c].item(),
+                          ref=ref[b, y, x, c].item(),
+                          limit=lim[b, y, x, c].item(), taps=taps))
+        print(f"  {found[-1]['grad']}{[b, y, x, c]}: got "
+              f"{found[-1]['got']!r}, ref {found[-1]['ref']!r}, limit "
+              f"{found[-1]['limit']!r}; taps of another slope: " + (
+                  "; ".join(f"target {d['target']} tap {d['tap']}: plain "
+                            f"{d['plain']!r}, kernel {d['kernel']!r}, exact "
+                            f"{d['exact']!r} (sum of magnitudes "
+                            f"{d['magnitude']!r})" for d in taps)
+                  or "none"), flush=True)
+    out = os.path.join(HERE, "refign_tpu_torch", "build", "ab")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "k3_bwd_kink.json")
+    old = []
+    if os.path.exists(path):
+        with open(path) as f:
+            old = json.load(f)
+    with open(path, "w") as f:
+        json.dump(old + [dict(shape=[B, H, W, C], P=P, elements=len(bad),
+                              found=found)], f)
+
+
 def main() -> int:
     import torch
     if len(sys.argv) != 2 or not torch.cuda.is_available():
@@ -189,7 +285,10 @@ def main() -> int:
     # per kernel: (launches per unit, label, references, (rel, abs) limit
     # of each, outputs, make(tag, outputs) -> a call, or None)
     cases = {"K1": [], "K2": [], "K3": [], "K3 fused": [], "K1-bwd": [],
-             "K2-bwd": []}
+             "K2-bwd": [], "K3-bwd": [], "K3-bwd path": []}
+    # (name, label) -> what prints the elements of output j beyond the
+    # limit: explain(j, got, ref, limit)
+    explain = {}
     bf16_limit = [(chip_smoke.BF16_REL, chip_smoke.BF16_ABS)]
     for n, N, M, H, S, C in chip_smoke.STAGES:
         q, k, v = chip_smoke.attention_case(gen, chip_smoke.B_ROWS, N, M, H,
@@ -260,11 +359,37 @@ def main() -> int:
             lambda t, o, x=x, w=w, b=b, g=g: k2_backward_call(
                 *libs[t]["dwconv3x3_gelu_backward"], x, w, b, g, o, stream)))
 
+    for B, H, W, C in chip_smoke.ALIGN_TRAIN_LEVELS:
+        t, s, g = chip_smoke.corr_grad_case(gen, B, H, W, C, P,
+                                            torch.bfloat16, True)
+        refs = fp32_grads(
+            lambda a, b_: local_correlation_relu_l2norm_reference(a, b_, P),
+            (t, s), g)
+        scales, jumps = chip_smoke.corr_grad_scale(t, s, g, P, True)
+        # chip_smoke.check_corr_grad's limit as (rel, abs)
+        limits = [(chip_smoke.BF16_REL, chip_smoke.GRAD_REL * sc + jp)
+                  for sc, jp in zip(scales, jumps)]
+        for name, keep in (("K3-bwd", (0, 1)), ("K3-bwd path", (1,))):
+            explain[(name, f"({B},{H},{W},{C}) P={P}")] = (
+                lambda j, got, ref, lim, keep=keep, t=t, s=s: k3_kink_report(
+                    libs["this"]["local_correlation"][0], keep[j], got, ref,
+                    lim, t, s, P, stream))
+            cases[name].append((
+                chip_smoke.ALIGN_TRAIN_PASSES, f"({B},{H},{W},{C}) P={P}",
+                [refs[i] for i in keep], [limits[i] for i in keep],
+                [torch.empty_like(t) for _ in keep],
+                lambda tag, o, t=t, s=s, g=g: k3_backward_call(
+                    libs[tag]["local_correlation_backward"][0], t, s, g, o, P,
+                    stream) if "local_correlation_backward" in libs[tag]
+                else None))
+
     def unit(name):
-        return ("align" if name.startswith("K3") else "train step"
+        return ("UAWarpC step" if name.startswith("K3-bwd") else "align"
+                if name.startswith("K3") else "train step"
                 if name.endswith("bwd") else "forward")
 
     best = {}
+    failures = []
     for rnd, tag in enumerate(("other", "this", "this", "other")):
         for name, rows in cases.items():
             times = []
@@ -275,13 +400,21 @@ def main() -> int:
                 if fn() != 0:
                     raise RuntimeError(f"{name} ({tag}) launch failed")
                 torch.cuda.synchronize()
-                for ref, (rel, abs_), out in zip(refs, limits, outs):
+                for j, (ref, (rel, abs_), out) in enumerate(
+                        zip(refs, limits, outs)):
+                    lim = rel * ref.abs() + abs_
                     err = (out.float() - ref).abs()
-                    bad = int((err > rel * ref.abs() + abs_).sum())
-                    if bad:
-                        raise AssertionError(
-                            f"{name} {label} ({tag}): {bad} elements "
-                            f"beyond {rel:g}*|ref| + {abs_:g}")
+                    bad = int((err > lim).sum())
+                    what = f"{name} {label} ({tag}) output {j}"
+                    if bad and not any(f.startswith(what) for f in failures):
+                        # a failure is reported once, and the run goes on
+                        # to time every kernel; the exit code is 1
+                        failures.append(f"{what}: {bad} elements beyond the "
+                                        f"limit; max abs err "
+                                        f"{err.max().item():.3e}")
+                        print("FAILED " + failures[-1], flush=True)
+                        if tag == "this" and (name, label) in explain:
+                            explain[(name, label)](j, out, ref, lim)
                 t = chip_smoke.time_ms(fn)
                 times.append(t)
                 key = (name, label, tag)
@@ -304,7 +437,9 @@ def main() -> int:
             tot = sum(r[0] * best[(name, r[1], tag)] for r in rows)
             print(f"{name} best per {unit(name)}, {tag}: {tot:.3f} ms")
     print(chip_smoke.card_line())
-    return 0
+    for f in failures:
+        print("FAILED " + f)
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":

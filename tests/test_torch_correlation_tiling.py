@@ -1,6 +1,7 @@
-"""K3's bf16 tensor-core tiling (refign_tpu_torch/csrc/local_correlation.cu)
-emulated in PyTorch on the CPU, and the fused ReLU + L2 mode's plain
-version, against the JAX package.
+"""K3's bf16 tensor-core tiling (refign_tpu_torch/csrc/local_correlation.cu,
+its banded product in csrc/local_correlation_tile.cuh) emulated in PyTorch
+on the CPU, and the fused ReLU + L2 mode's plain version, against the JAX
+package.
 
 The emulation repeats the kernel's arithmetic with the tile constants read
 from the source: per pair of target rows (y, y+1) and 8-pixel segment, the
@@ -28,14 +29,14 @@ from refign_tpu_torch.ops import correlation as tc
 
 TOL = dict(rtol=0, atol=1e-5)
 CU = os.path.join(os.path.dirname(tc.__file__), os.pardir, "csrc",
-                  "local_correlation.cu")
+                  "local_correlation_tile.cuh")
 
 
 def _tc_constants():
     """SEG, HALO, WIN and KC of the kernel's tensor-core body."""
     with open(CU) as f:
         src = f.read()
-    body = src[src.index("namespace tcore {"):src.index("}  // namespace tcore")]
+    body = src[src.index("namespace lcorr {"):src.index("}  // namespace lcorr")]
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", body))
     seg, halo, kc = int(consts["SEG"]), int(consts["HALO"]), int(consts["KC"])
     assert consts["WIN"].replace(" ", "") == "SEG+2*HALO"

@@ -670,3 +670,48 @@ def test_local_correlation_backward_is_deterministic(gen, dtype):
         first = local_correlation_backward(t, s, gg, 9, fused)
         second = local_correlation_backward(t, s, gg, 9, fused)
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _corr_source_layout(s, layout):
+    """The source as the head passes it (``nchw``: the NHWC view of an NCHW
+    map), NHWC contiguous, or the NHWC view of an NCHW map whose rows start
+    one element past a word (``offset``: a column sliced off)."""
+    if layout == "nhwc":
+        return s.contiguous()
+    if layout == "offset":
+        B, H, W, C = s.shape
+        wide = torch.zeros(B, C, H, W + 1, device=s.device, dtype=s.dtype)
+        wide[..., 1:] = s.permute(0, 3, 1, 2)
+        return wide[..., 1:].permute(0, 2, 3, 1)
+    return s
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc", "offset"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("B,H,W,C,P", [(1, 65, 65, 64, 9),
+                                       (1, 130, 130, 32, 9),
+                                       (2, 17, 45, 40, 9), (1, 20, 30, 13, 5)])
+def test_local_correlation_backward_bf16_body(gen, layout, fused, B, H, W, C,
+                                              P):
+    """The bf16 body at the stage-1 widths (W = 130: 4-byte source words;
+    W = 65: landed rows of every phase) and ragged shapes, each source
+    layout, g a slice of a wider tensor (the gradient of the decoder's
+    concatenation): gs alone equals gs of both, both hold the limit, and a
+    repeat gives the same bits."""
+    t, s = _corr_grad_inputs(gen, B, H, W, C, torch.bfloat16)
+    s = _corr_source_layout(s, layout)
+    PP = P * P
+    wide = torch.randn(B, H, W, PP + 19, generator=gen, device="cuda").to(
+        torch.bfloat16 if fused else torch.float32)
+    g = wide[..., 7:7 + PP]
+    both = local_correlation_backward(t, s, g, P, fused)
+    none_t, gs = local_correlation_backward(t, s, g, P, fused, need_t=False)
+    assert none_t is None and torch.equal(gs, both[1])
+    again = local_correlation_backward(t, s, g, P, fused)
+    assert all(torch.equal(a, b) for a, b in zip(both, again))
+    plain = (local_correlation_relu_l2norm_reference if fused
+             else local_correlation_reference)
+    want = _ref_grads(lambda a, b: plain(a, b, P), (t, s), g)
+    scales, jumps = _corr_grad_scale(t, s, g, P, fused)
+    for got, ref, scale, jump in zip(both, want, scales, jumps):
+        _corr_grad_close(got, ref, scale, jump, torch.bfloat16)

@@ -17,7 +17,9 @@ gradients and with gs alone as the path asks), checks each output against
 the plain version within ``chip_smoke.py``'s limit (bf16 for K1 and K2,
 1e-5 for K3, the gradient limits against fp32 autograd for the
 backwards), and prints the times of the runs other, this, this, other,
-then the best of each checkout per shape.  An output beyond its limit is
+then the best of each checkout per shape.  For K3's backward it also
+prints, in the first run of each checkout, how many elements pass only by
+the limit's bf16 allowance on jump (``chip_smoke.corr_grad_limit``).  An output beyond its limit is
 printed once (for this checkout's K3 backward with the taps that feed
 each such element and whose raw sum takes another ReLU slope in the kernel
 than in the plain version, also written to ``refign_tpu_torch/build/ab/
@@ -289,6 +291,9 @@ def main() -> int:
     # (name, label) -> what prints the elements of output j beyond the
     # limit: explain(j, got, ref, limit)
     explain = {}
+    # (name, label) -> per output, K3-bwd's limit without its bf16
+    # allowance on jump, and jump
+    kinks = {}
     bf16_limit = [(chip_smoke.BF16_REL, chip_smoke.BF16_ABS)]
     for n, N, M, H, S, C in chip_smoke.STAGES:
         q, k, v = chip_smoke.attention_case(gen, chip_smoke.B_ROWS, N, M, H,
@@ -366,10 +371,15 @@ def main() -> int:
             lambda a, b_: local_correlation_relu_l2norm_reference(a, b_, P),
             (t, s), g)
         scales, jumps = chip_smoke.corr_grad_scale(t, s, g, P, True)
-        # chip_smoke.check_corr_grad's limit as (rel, abs)
-        limits = [(chip_smoke.BF16_REL, chip_smoke.GRAD_REL * sc + jp)
-                  for sc, jp in zip(scales, jumps)]
+        # chip_smoke.check_corr_grad's limit as (rel, abs), and the limit
+        # without its bf16 allowance on jump, for the count of elements
+        # that pass only by that allowance
+        both = [chip_smoke.corr_grad_limit(r, sc, jp, torch.bfloat16)
+                for r, sc, jp in zip(refs, scales, jumps)]
+        limits = [(0.0, lim) for lim, _ in both]
         for name, keep in (("K3-bwd", (0, 1)), ("K3-bwd path", (1,))):
+            kinks[(name, f"({B},{H},{W},{C}) P={P}")] = [
+                (both[i][1], jumps[i]) for i in keep]
             explain[(name, f"({B},{H},{W},{C}) P={P}")] = (
                 lambda j, got, ref, lim, keep=keep, t=t, s=s: k3_kink_report(
                     libs["this"]["local_correlation"][0], keep[j], got, ref,
@@ -406,6 +416,12 @@ def main() -> int:
                     err = (out.float() - ref).abs()
                     bad = int((err > lim).sum())
                     what = f"{name} {label} ({tag}) output {j}"
+                    if (name, label) in kinks and rnd < 2:
+                        old, jump = kinks[(name, label)][j]
+                        print(f"{what}: "
+                              f"{chip_smoke.kink_only(err, lim, old, jump, what)}"
+                              f" elements within the limit only by the bf16 "
+                              f"allowance on jump", flush=True)
                     if bad and not any(f.startswith(what) for f in failures):
                         # a failure is reported once, and the run goes on
                         # to time every kernel; the exit code is 1

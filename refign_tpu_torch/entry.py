@@ -14,13 +14,21 @@ pyramid, UAWarpC head with uncertainty) of
 UAWarpC's evaluation forward and ``refign_align_refine`` Refign's align
 and refine of the teacher's pseudo-labels inside a UDA step.
 
+DeepLabV2 inference (the evaluation of
+``configs/*/refign_deeplabv2.yaml``): ``build_deeplabv2`` builds the
+dilated ResNet v1c + DeepLabV2 ASPP head in eval mode with seeded random
+weights; ``deeplabv2_forward`` runs ``Segmentor.whole`` on whole images
+(the test configuration's 540x960).
+
 UDA training (counterpart of ``make_uda_train_step`` with the
-``configs/cityscapes_acdc/refign_hrda_star.yaml`` settings):
+``configs/cityscapes_acdc/refign_hrda_star.yaml`` settings, or those of
+``refign_deeplabv2.yaml`` for a ResNet ``model_type``):
 ``build_uda_trainer`` builds the student (MiT + DAFormer + SegFormer scale
-attention, fp32 masters, remat), its EMA teacher, the frozen ImageNet
-backbone copy, the frozen alignment network and AdamW with the
-warmup-poly schedule, all from a seed; ``uda_train_step`` takes one step
-on a batch, its random draws made from a host generator.
+attention, fp32 masters, remat; or ResNet v1c + DeepLabV2), its EMA
+teacher, the frozen ImageNet backbone copy, the frozen alignment network
+and AdamW with the warmup-poly schedule, all from a seed;
+``uda_train_step`` takes one step on a batch, its random draws made from a
+host generator.
 
 UAWarpC alignment training (counterpart of ``make_align_train_step`` with
 the ``configs/megadepth/uawarpc_stage{1,2}.yaml`` settings):
@@ -39,9 +47,11 @@ import torch
 from .alignment import trainer as align_trainer
 from .alignment.trainer import AlignmentNet, align_forward as _align_forward
 from .models.heads.daformer import DAFormerHead
+from .models.heads.deeplabv2 import DeepLabV2Head
 from .models.heads.segformer import SegFormerHead
 from .models.heads.uawarpc import UAWarpCHead
 from .models.mix_transformer import MixVisionTransformer
+from .models.resnet import ARCH_SETTINGS as RESNETS, ResNet
 from .models.segmentor import Segmentor, slide_inference
 from .models.vgg import VGG
 from .parallel.mesh import cast_floating
@@ -63,6 +73,17 @@ UDA_BASE_LR = 6e-4
 UDA_WEIGHT_DECAY = 0.01
 UDA_POLY_POWER = 1.0
 UDA_BACKBONE_LR_FACTOR = 0.1
+# the UDA settings of configs/{cityscapes_acdc,cityscapes_darkzurich,
+# cityscapes_robotcar}/refign_deeplabv2.yaml; their optimizer and schedule
+# are the HRDA★ file's, and they set no drop path, dropout or with_cp
+REFIGN_DEEPLABV2 = UDAConfig(use_hrda=False, use_refign=True,
+                             use_align=True, adapt_to_ref=True, gamma=0.25,
+                             enable_fdist=True)
+# the model of the same files: ResNet-101 v1c, dilated to output stride 8,
+# and the DeepLabV2 head on layer4
+DEEPLABV2_STRIDES = (1, 2, 1, 1)
+DEEPLABV2_DILATIONS = (1, 1, 2, 4)
+DEEPLABV2_IN_INDEX = 3
 
 # configs/megadepth/uawarpc_stage1.yaml as tasks/align_task.py reads it:
 # 750^2 loads, the prime's ColorJitter 0.6/0.6/0.6/0, ChannelShuffle and
@@ -127,6 +148,45 @@ def hrda_slide_forward(model: Segmentor, img: torch.Tensor,
         return slide_inference(model.whole, img, crop_size, stride)
 
 
+def deeplabv2_segmentor(model_type: str = "resnet101_v1c",
+                        num_classes: int = 19, seed: int = 0,
+                        **backbone_kw) -> Segmentor:
+    """ResNet v1c (``model_type``) with DeepLabV2's strides and dilations
+    and the DeepLabV2 head on layer4, fp32 weights drawn from ``seed``, on
+    the CPU; ``backbone_kw`` goes to ``ResNet`` (stem and base widths,
+    ``norm_eval``, ...)."""
+    backbone = ResNet(model_type, strides=DEEPLABV2_STRIDES,
+                      dilations=DEEPLABV2_DILATIONS, **backbone_kw)
+    head = DeepLabV2Head(num_classes,
+                         in_channels=backbone.out_channels[DEEPLABV2_IN_INDEX],
+                         in_index=DEEPLABV2_IN_INDEX)
+    gen = torch.Generator().manual_seed(seed)
+    backbone.init_weights(gen)
+    head.init_weights(gen)
+    return Segmentor(backbone, head)
+
+
+def build_deeplabv2(model_type: str = "resnet101_v1c", num_classes: int = 19,
+                    dtype: torch.dtype = torch.bfloat16, device="cuda",
+                    seed: int = 0) -> Segmentor:
+    """Eval-mode DeepLabV2 of ``refign_deeplabv2.yaml`` on ``device`` with
+    weights drawn from ``seed`` (parameters in ``dtype``, BatchNorm
+    statistics fp32): ResNet v1c with strides (1, 2, 1, 1) and dilations
+    (1, 1, 2, 4), the DeepLabV2 head with ``in_index`` 3."""
+    dev = _resolve_device(device)
+    model = deeplabv2_segmentor(model_type, num_classes, seed)
+    cast_floating(model, dtype)
+    return model.to(dev).eval().requires_grad_(False)
+
+
+def deeplabv2_forward(model: Segmentor, img: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) images -> (B, H, W, num_classes) logits through
+    ``Segmentor.whole`` (the configurations' whole-image inference at
+    540x960, no slide)."""
+    with torch.inference_mode():
+        return model.whole(img)
+
+
 def build_alignment(model_type: str = "vgg16",
                     iterative_refinement: bool = False,
                     dtype: torch.dtype = torch.bfloat16, device="cuda",
@@ -171,25 +231,10 @@ def refign_align_refine(net: AlignmentNet, logits_trg: torch.Tensor,
     return probs, mask, cert
 
 
-def build_uda_trainer(model_type: str = "mit_b5",
-                      cfg: Optional[UDAConfig] = None, device="cuda",
-                      seed: int = 0, channels: int = 256,
-                      max_steps: int = 40000,
-                      warmup_iters: int = 1500) -> UDATrainer:
-    """A UDA trainer on ``device`` with weights drawn from ``seed``.
-
-    The settings are those of ``refign_hrda_star.yaml``: MiT-B5 with remat
-    and drop path 0.1, DAFormer (256) and the SegFormer scale attention
-    (256) with dropout 0.1, HRDA with output stride 4 and HR loss weight
-    0.1, Refign with the frozen VGG-16 + UAWarpC alignment network
-    (``build_alignment``, in the compute dtype), adapt-to-reference with
-    gamma 0.25, the ImageNet feature distance, DACS with colour jitter
-    0.2 / 0.2 and blur, AdamW at 6e-4 with weight decay 0.01 and a
-    backbone factor of 0.1, warmup 1500 -> poly(1.0) over 40,000 steps,
-    bf16 compute on fp32 masters.  ``cfg`` (default ``REFIGN_HRDA_STAR``)
-    also sets the class count of the heads."""
-    cfg = REFIGN_HRDA_STAR if cfg is None else cfg
-    dev = _resolve_device(device)
+def _hrda_student(model_type: str, cfg: UDAConfig, seed: int,
+                  channels: int) -> Segmentor:
+    """MiT (drop path, remat) + DAFormer (dropout) + the SegFormer scale
+    attention where ``cfg.use_hrda``, fp32, from ``seed``, on the CPU."""
     backbone = MixVisionTransformer(model_type=model_type,
                                     drop_path_rate=UDA_DROP_PATH_RATE,
                                     remat=UDA_REMAT)
@@ -205,8 +250,45 @@ def build_uda_trainer(model_type: str = "mit_b5",
     head.init_weights(gen)
     if scale_attention is not None:
         scale_attention.init_weights(gen)
-    student = Segmentor(backbone, head, scale_attention,
-                        hrda_output_stride=cfg.hrda_output_stride).to(dev)
+    return Segmentor(backbone, head, scale_attention,
+                     hrda_output_stride=cfg.hrda_output_stride)
+
+
+def build_uda_trainer(model_type: str = "mit_b5",
+                      cfg: Optional[UDAConfig] = None, device="cuda",
+                      seed: int = 0, channels: int = 256,
+                      max_steps: int = 40000,
+                      warmup_iters: int = 1500) -> UDATrainer:
+    """A UDA trainer on ``device`` with weights drawn from ``seed``.
+
+    For a ResNet ``model_type`` (``resnet18_v1c``, ``resnet50_v1c``,
+    ``resnet101_v1c``) the settings are those of ``refign_deeplabv2.yaml``:
+    the DeepLabV2 student (``build_deeplabv2``'s network, fp32 masters, no
+    drop path, dropout or remat) and ``REFIGN_DEEPLABV2`` (no HRDA) by
+    default; the alignment network, the ImageNet copy, the optimizer and
+    the schedule are as below.  ``channels`` is unused there.
+
+    Otherwise the settings are those of ``refign_hrda_star.yaml``: MiT-B5
+    with remat and drop path 0.1, DAFormer (256) and the SegFormer scale
+    attention (256) with dropout 0.1, HRDA with output stride 4 and HR loss
+    weight 0.1, Refign with the frozen VGG-16 + UAWarpC alignment network
+    (``build_alignment``, in the compute dtype), adapt-to-reference with
+    gamma 0.25, the ImageNet feature distance, DACS with colour jitter
+    0.2 / 0.2 and blur, AdamW at 6e-4 with weight decay 0.01 and a
+    backbone factor of 0.1, warmup 1500 -> poly(1.0) over 40,000 steps,
+    bf16 compute on fp32 masters.  ``cfg`` (default ``REFIGN_HRDA_STAR``)
+    also sets the class count of the heads."""
+    dev = _resolve_device(device)
+    if model_type in RESNETS:
+        cfg = REFIGN_DEEPLABV2 if cfg is None else cfg
+        if cfg.use_hrda:
+            raise ValueError("the DeepLabV2 student has no HRDA scale "
+                             "attention; use_hrda must be False")
+        student = deeplabv2_segmentor(model_type, cfg.num_classes,
+                                      seed).to(dev)
+    else:
+        cfg = REFIGN_HRDA_STAR if cfg is None else cfg
+        student = _hrda_student(model_type, cfg, seed, channels).to(dev)
     opt, sched = make_uda_optimizer(
         student, UDA_BASE_LR, UDA_WEIGHT_DECAY, max_steps,
         backbone_lr_factor=UDA_BACKBONE_LR_FACTOR, warmup_iters=warmup_iters,

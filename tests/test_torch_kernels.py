@@ -151,9 +151,13 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import refign_tpu_torch\n"
-        "for m in pkgutil.walk_packages(refign_tpu_torch.__path__,\n"
-        "                               'refign_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    refign_tpu_torch.__path__, 'refign_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "want = {'refign_tpu_torch.models.resnet', 'refign_tpu_torch.metrics',\n"
+        "        'refign_tpu_torch.models.heads.deeplabv2'}\n"
+        "assert want <= set(names), sorted(want - set(names))\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'flax')\n"
         "             or k.startswith(('jax.', 'flax.'))\n"
         "             or k == 'refign_tpu' or k.startswith('refign_tpu.'))\n"

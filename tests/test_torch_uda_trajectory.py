@@ -204,16 +204,20 @@ def _one_thread():
         torch.set_num_threads(threads)
 
 
-def _port_trainer(student, cfg, align_net, imnet):
+def _port_trainer(student, cfg, align_net, imnet, imnet_stats=None):
+    """A port trainer on ``student`` whose ImageNet copy holds ``imnet``
+    (and ``imnet_stats``, the BatchNorm statistics of a BN backbone)."""
     opt, sched = make_uda_optimizer(student, LR, WD, MAX_STEPS,
                                     backbone_lr_factor=0.1,
                                     warmup_iters=WARMUP, power=1.0)
     state = init_uda_state(student, opt, sched, cfg.enable_fdist)
-    load_jax_variables(state.imnet, {"params": imnet, "batch_stats": {}})
+    load_jax_variables(state.imnet, {"params": imnet,
+                                     "batch_stats": imnet_stats or {}})
     return UDATrainer(cfg, state, align_net, torch.Generator())
 
 
-def _update_errors(init_variables, jax_variables, student, n_steps):
+def _update_errors(init_variables, jax_variables, student, n_steps,
+                   make_ref=None):
     """Per state_dict entry of ``student``: the L2 error of its change from
     ``init_variables`` against the JAX state's change, less what rounding
     the fp32 entry on both sides may account for (``n_steps`` roundings of
@@ -225,8 +229,10 @@ def _update_errors(init_variables, jax_variables, student, n_steps):
     that is rounding noise, where a gradient is zero in exact arithmetic
     (a bias before a batch-statistics BN, which removes any such shift; q
     where a stage's attention has one key) and Adam turns its noise into
-    an update."""
-    ref = _port_student(student.scale_attention is not None)
+    an update.  ``make_ref`` builds a module of ``student``'s structure
+    (default: the mit_b0 student of this file)."""
+    ref = (_port_student(student.scale_attention is not None)
+           if make_ref is None else make_ref())
 
     def entries(variables):
         load_jax_variables(ref, variables)
@@ -253,21 +259,23 @@ def _update_errors(init_variables, jax_variables, student, n_steps):
     return errors, sizes, floors
 
 
-def _assert_updates_match(init_variables, jax_variables, student, n_steps):
+def _assert_updates_match(init_variables, jax_variables, student, n_steps,
+                          make_ref=None, rtol=UPDATE_RTOL):
     errors, sizes, floors = _update_errors(init_variables, jax_variables,
-                                           student, n_steps)
+                                           student, n_steps, make_ref)
     worst = max(errors, key=errors.get)
-    assert errors[worst] <= UPDATE_RTOL, (worst, errors[worst])
+    assert errors[worst] <= rtol, (worst, errors[worst])
     # the check sees every change above the floor: a port that left the
     # state unchanged (all of it, or the backbone group at its 0.1
     # learning-rate factor) fails it on each such entry
-    unchanged = _port_student(student.scale_attention is not None)
+    unchanged = (_port_student(student.scale_attention is not None)
+                 if make_ref is None else make_ref())
     load_jax_variables(unchanged, init_variables)
     fault, _, _ = _update_errors(init_variables, jax_variables, unchanged,
-                                 n_steps)
+                                 n_steps, make_ref)
     moved = [k for k in sizes if sizes[k] > floors[k]]
     assert any(k.startswith("backbone.") for k in moved)
-    assert all(fault[k] > UPDATE_RTOL for k in moved)
+    assert all(fault[k] > rtol for k in moved)
 
 
 def _at_update_count(state, count):

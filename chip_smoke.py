@@ -73,6 +73,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    small fp32 resnet50_v1c step), one counted Refign-branch step that must
    launch K3 3 times at the levels' shapes and no other kernel, 1 warm-up
    and 5 timed Refign-branch steps, the peak memory and a profile;
+6d. the runtime, through ``refign_tpu_torch.cli.main`` in this process,
+   on synthetic dataset trees at the datasets' sizes
+   (``refign_tpu_torch/data/synthetic.py``: Cityscapes 1024x2048 with the
+   rare-class files, ACDC 1080x1920, MegaDepth's full-length train split)
+   and seeded weights written as reference-named files (MiT-B5, VGG-16,
+   an AlignmentModel .ckpt) that the configs' ``pretrained`` entries are
+   pointed at: ``fit`` of ``configs/cityscapes_acdc/refign_hrda_star.yaml``
+   for 6 steps (each step's launches: K1, K2 and their backwards as phase
+   6 counts them, K3 3 times on a Refign-branch step and none on the
+   others; two steps profiled for the device's busy share; the loader's
+   wait per step; the checkpoint's write time and size; the last step
+   again from the state it left, on its batch and draws and on the Refign
+   branch, losses and gradients through the kernels against the plain
+   versions' at phase 6's limits; the same step timed with the loader
+   stopped), ``validate`` from the checkpoint (its IoU and confusion
+   matrices equal to the fit's last validation; the first image's fp32
+   logits and confusion matrix against the plain versions'), ``predict``
+   (a trainId and a colour PNG per test image at 1080x1920); ``fit`` (3
+   steps, K3 and its backward 9 times each per step; the step timed with
+   the loader stopped) and ``validate`` of
+   ``configs/megadepth/uawarpc_stage1.yaml``; ``test`` of
+   ``configs/cityscapes_acdc/refign_deeplabv2.yaml`` (no kernel launched);
+   every loss and metric finite;
 7. each kernel's time per call of its path (K1 and K2 summed over the 52
    launches of a forward, beside SDPA's and cuDNN conv + gelu's sums; K3
    over an align; the backward kernels over the 104 launches of a train
@@ -1176,22 +1199,25 @@ def uda_batch(B, S, seed, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def grads_kernels_vs_plain(trainer, batch, gen):
+def grads_kernels_vs_plain(trainer, batch, gen=None, draws=None):
     """From one state and the same draws, the gradient of one step through
     the kernels and through their plain versions (the state is restored
-    after each).  Returns the two runs' logs and gradients by name."""
-    import torch
+    after each).  The draws are the given ones, or drawn from ``gen`` on
+    the Refign branch.  Returns the two runs' logs and gradients by
+    name."""
     from refign_tpu_torch.uda.trainer import draw_step, forward_backward
     state = trainer.state
-    draws = draw_step(trainer.cfg, batch, gen)
-    draws.use_ref_as_target = False  # the Refign branch, with its align
+    if draws is None:
+        draws = draw_step(trainer.cfg, batch, gen)
+        draws.use_ref_as_target = False  # the Refign branch, with its align
     saved = [{k: v.clone() for k, v in m.state_dict().items()}
              for m in (state.student, state.teacher)]
 
     def run():
         logs = forward_backward(trainer, batch, draws)
         grads = {n: p.grad.detach().clone()
-                 for n, p in state.student.named_parameters()}
+                 for n, p in state.student.named_parameters()
+                 if p.grad is not None}
         state.optimizer.zero_grad(set_to_none=True)
         for m, sd in zip((state.student, state.teacher), saved):
             m.load_state_dict(sd)
@@ -1731,6 +1757,497 @@ def phase_deeplabv2(card):
     return launches, sec, peak
 
 
+# --- phase 6d: the runtime (CLI fit / validate / predict / test) ---------
+
+HRDA_YAML = "configs/cityscapes_acdc/refign_hrda_star.yaml"
+STAGE1_YAML = "configs/megadepth/uawarpc_stage1.yaml"
+DL_YAML = "configs/cityscapes_acdc/refign_deeplabv2.yaml"
+RUNTIME_FIT_STEPS = 6
+RUNTIME_PROFILED = (2, 3)       # 0-based loop steps profiled together
+RUNTIME_ALIGN_STEPS = 3
+RUNTIME_MIT = "mit_b5"          # refign_hrda_star.yaml's backbone
+# the trees: Cityscapes 8 train + 2 val at 1024x2048; ACDC 8 train (with
+# their _ref images) + 2 val + 2 test at 1080x1920; MegaDepth's full-length
+# train split (100 scenes of 18 images from 18 shared 1600x1064 JPEGs) and
+# one validation scene of 4 images (12 pairs)
+CITYSCAPES_HW, ACDC_HW, MEGADEPTH_HW = (1024, 2048), (1080, 1920), (1064,
+                                                                    1600)
+
+
+def write_runtime_data(root):
+    """The synthetic dataset trees (``refign_tpu_torch/data/synthetic.py``)
+    at the datasets' sizes."""
+    from refign_tpu_torch.data.synthetic import (make_acdc, make_cityscapes,
+                                                 make_megadepth)
+    make_cityscapes(os.path.join(root, "Cityscapes"), n_train=8, n_val=2,
+                    size=CITYSCAPES_HW)
+    make_acdc(os.path.join(root, "ACDC"), n_train=8, n_val=2, n_test=2,
+              size=ACDC_HW)
+    make_megadepth(os.path.join(root, "MegaDepth"), n_files=18,
+                   size=MEGADEPTH_HW)
+
+
+def write_reference_weights(root):
+    """Seeded weights as reference-named files: a MiT-B5 ImageNet file
+    (bare names, the reference's ``mlp.dwconv.dwconv``, a classifier to
+    drop), a torchvision VGG-16 file and an AlignmentModel ``.ckpt`` (a
+    Lightning ``state_dict`` under ``alignment_head.``).  Returns their
+    paths."""
+    import torch
+    from refign_tpu_torch.models.heads.uawarpc import UAWarpCHead
+    from refign_tpu_torch.models.mix_transformer import MixVisionTransformer
+    from refign_tpu_torch.models.vgg import VGG
+    from refign_tpu_torch.utils.checkpoint import to_reference
+    os.makedirs(root, exist_ok=True)
+    paths = {}
+    mit = MixVisionTransformer(RUNTIME_MIT)
+    mit.init_weights(torch.Generator().manual_seed(10))
+    sd = to_reference(mit.state_dict())
+    sd.update({"head.weight": torch.zeros(1000, 512),
+               "head.bias": torch.zeros(1000)})
+    paths["mit"] = os.path.join(root, f"{RUNTIME_MIT}.pth")
+    torch.save(sd, paths["mit"])
+    vgg = VGG("vgg16", out_indices=(2, 3, 4))
+    vgg.init_weights(torch.Generator().manual_seed(11))
+    paths["vgg16"] = os.path.join(root, "vgg16-397923af.pth")
+    torch.save(vgg.state_dict(), paths["vgg16"])
+    head = UAWarpCHead(in_index=(0, 1), estimate_uncertainty=True)
+    head.init_weights(torch.Generator().manual_seed(12))
+    paths["uawarpc"] = os.path.join(root, "uawarpc_megadepth.ckpt")
+    torch.save({"state_dict": to_reference(head.state_dict(),
+                                           "alignment_head."),
+                "epoch": 0, "global_step": 0}, paths["uawarpc"])
+    return paths
+
+
+def busy_share(prof, window_s):
+    """The share of ``window_s`` in which the card ran a kernel or a copy
+    (the union of the trace's device intervals), and their count."""
+    import torch
+    ivs = sorted((e.time_range.start, e.time_range.end) for e in
+                 prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in ivs:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6 / window_s, len(ivs)
+
+
+class StepProbe:
+    """Wraps a task module's ``train_step``: per step, the launches of each
+    counted wrapper and the branch; a torch.profiler window over the steps
+    ``profiled`` (from the first's start to the last's end, the loop
+    between them included)."""
+
+    def __init__(self, module, counted, profiled=()):
+        self.module, self.counted = module, counted
+        self.profiled = tuple(profiled)
+        self.steps, self.prof, self.window = [], None, None
+        self.last = None
+        self.real = module.train_step
+        module.train_step = self
+
+    def __call__(self, trainer, batch, draws):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        i = len(self.steps)
+        if self.profiled and i == self.profiled[0]:
+            torch.cuda.synchronize()
+            # device activity only: host-side tracing of ~100k ops a step
+            # would lengthen the window it measures
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self._t0 = time.perf_counter()
+        before = {n: f.launches for n, f in self.counted.items()}
+        out = self.real(trainer, batch, draws)
+        self.last = (trainer, batch, draws)
+        self.steps.append(dict(
+            launches={n: f.launches - before[n]
+                      for n, f in self.counted.items()},
+            refign=not getattr(draws, "use_ref_as_target", False)))
+        if self.profiled and i == self.profiled[-1]:
+            torch.cuda.synchronize()
+            self.window = time.perf_counter() - self._t0
+            self.prof.__exit__(None, None, None)
+        return out
+
+    def restore(self):
+        self.module.train_step = self.real
+
+
+class Recorder:
+    """Replaces ``owner.name`` with a wrapper that times each call (to the
+    card's end of it) and keeps its arguments and what it returns."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.real = getattr(owner, name)
+        self.calls = []
+        rec = self
+
+        def wrapper(*a, **k):
+            import torch
+            t0 = time.perf_counter()
+            out = rec.real(*a, **k)
+            torch.cuda.synchronize()
+            rec.calls.append((a, out, time.perf_counter() - t0))
+            return out
+        setattr(owner, name, wrapper)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.real)
+
+
+def time_alone(step, last, n=3):
+    """Host-clock seconds of ``n`` more steps on a fit's last trainer,
+    batch and draws (the loader stopped), after one warm-up."""
+    import torch
+    step(*last)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*last)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def check_eval_plain(fwd, call, loader_of):
+    """The first validation image of a run again through the plain
+    versions: the fp32 logits within E2E_FP32_REL of the kernel run's, and
+    the confusion matrix against its label equal but for pixels whose two
+    largest logits lie within twice the logits' largest difference."""
+    import torch
+    from refign_tpu_torch.metrics import iou_init, iou_update
+    (task, model, x, out_size), out_k, _ = call
+    loaders = loader_of(task)
+    try:
+        first = next(iter(loaders[0]))
+    finally:
+        for loader in loaders:
+            loader.close()
+    if not torch.equal(first["image"].to(x.device), x):
+        raise AssertionError("the first validation image differs")
+    y = first["semantic"].to(x.device)
+    was_training = model.training
+    model.eval()
+    plain_versions(True)
+    try:
+        with torch.inference_mode():
+            out_p = fwd(task, model, x, out_size)
+    finally:
+        plain_versions(False)
+        model.train(was_training)
+    diff = (out_k - out_p).abs().max()
+    rel = (diff / out_p.abs().max()).item()
+    top2 = out_p.topk(2, dim=-1).values
+    near = int(((top2[..., 0] - top2[..., 1]) <= 2 * diff).sum())
+    nc = out_p.shape[-1]
+    conf_k = iou_update(iou_init(nc).to(x.device), out_k.argmax(-1), y)
+    conf_p = iou_update(iou_init(nc).to(x.device), out_p.argmax(-1), y)
+    moved = int((conf_k - conf_p).abs().sum()) // 2
+    log(f"  first validation image, fp32 {tuple(x.shape)}: logits kernels "
+        f"vs plain max rel {rel:.2e} (limit {E2E_FP32_REL:g}); confusion "
+        f"matrices differ by {moved} pixels ({near} within the tie "
+        f"margin {2 * diff.item():.2e})")
+    if not (rel <= E2E_FP32_REL and moved <= near):
+        raise AssertionError("validation: kernels disagree with plain "
+                             "versions")
+
+
+def _finite(d):
+    return all(v == v and abs(v) != float("inf") for v in d.values())
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_runtime(card, bare_step_sec, bare_align_sec):
+    """The runtime through ``refign_tpu_torch.cli.main`` on synthetic trees
+    at the datasets' sizes and seeded reference-named weight files."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from refign_tpu_torch import cli
+    from refign_tpu_torch.alignment import trainer as atr
+    from refign_tpu_torch.ops.attention import (sra_attention,
+                                                sra_attention_backward)
+    from refign_tpu_torch.ops.correlation import (local_correlation,
+                                                  local_correlation_backward)
+    from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                             dwconv3x3_gelu_backward)
+    from refign_tpu_torch.tasks import seg_task
+    from refign_tpu_torch.utils import checkpoint as ckpt_mod
+    counted = {"sra_attention": sra_attention,
+               "sra_attention_backward": sra_attention_backward,
+               "dwconv3x3_gelu": dwconv3x3_gelu,
+               "dwconv3x3_gelu_backward": dwconv3x3_gelu_backward,
+               "local_correlation": local_correlation,
+               "local_correlation_backward": local_correlation_backward}
+
+    def reset():
+        for f in counted.values():
+            f.launches = 0
+
+    def read():
+        return {n: f.launches for n, f in counted.items()}
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="refign_runtime_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        write_runtime_data(data)
+        weights = write_reference_weights(os.path.join(root, "weights"))
+        log(f"  wrote the synthetic trees and weight files in "
+            f"{time.perf_counter() - t0:.1f} s")
+        wd = os.path.join(root, "hrda")
+        common = ["--config", HRDA_YAML, "--data_dir", data, "--workdir", wd,
+                  "--model.init_args.backbone.init_args.pretrained",
+                  weights["mit"],
+                  "--model.init_args.alignment_backbone.init_args.pretrained",
+                  weights["vgg16"],
+                  "--model.init_args.alignment_head.init_args.pretrained",
+                  weights["uawarpc"]]
+
+        # fit: 6 steps, validation and checkpoint at step 6
+        probe = StepProbe(seg_task, counted, RUNTIME_PROFILED)
+        saves = Recorder(ckpt_mod, "save_checkpoint")
+        evals = Recorder(seg_task.SegTask, "evaluate")
+        fwds = Recorder(seg_task.SegTask, "forward")
+        try:
+            reset()
+            t0 = time.perf_counter()
+            cli.main(["fit"] + common + [
+                "--trainer.max_steps", str(RUNTIME_FIT_STEPS),
+                "--trainer.val_every_n_steps", str(RUNTIME_FIT_STEPS),
+                "--trainer.log_every_n_steps", "1"])
+            fit_sec = time.perf_counter() - t0
+            fit_launches = read()
+        finally:
+            probe.restore()
+            saves.restore()
+        steps = probe.steps
+        log(f"  cli fit ({RUNTIME_FIT_STEPS} steps, validation and "
+            f"checkpoint at the last) in {fit_sec:.1f} s; launches over the "
+            f"run: {fit_launches}")
+        for name in ("sra_attention", "sra_attention_backward",
+                     "dwconv3x3_gelu", "dwconv3x3_gelu_backward",
+                     "local_correlation"):
+            if not fit_launches[name]:
+                raise AssertionError(f"{name} never launched in the cli fit")
+        for i, s in enumerate(steps):
+            branch = "Refign" if s["refign"] else "ref as target"
+            log(f"    step {i + 1} ({branch} branch): {s['launches']}")
+            # K3 runs in the Refign branch's align step alone
+            want = {n: TRAIN_LAUNCHES.get(n, 0) for n in counted}
+            if not s["refign"]:
+                want["local_correlation"] = 0
+            if s["launches"] != want:
+                raise AssertionError(f"fit step {i + 1}: launches "
+                                     f"{s['launches']}, expected {want}")
+        if not any(s["refign"] for s in steps):
+            raise AssertionError("no Refign-branch step in the cli fit")
+        lines = _jsonl(os.path.join(wd, "metrics.jsonl"))
+        if not all(_finite(l) for l in lines):
+            raise AssertionError(f"non-finite fit logs: {lines}")
+        timing = _jsonl(os.path.join(wd, "timing.jsonl"))
+        step_s = [t["step_s"] for t in timing[1:]]
+        wait_s = [t["data_wait_s"] for t in timing[1:]]
+        med = statistics.median(step_s)
+        unprof = [t["step_s"] for t in timing[1:]
+                  if t["step"] - 1 not in RUNTIME_PROFILED]
+        log(f"  cli fit step (B=2 source + 2 target 1024^2 crops, steps "
+            f"2-{RUNTIME_FIT_STEPS}): median {med * 1e3:.1f} ms "
+            f"({[round(x * 1e3, 1) for x in step_s]} ms; unprofiled "
+            f"median {statistics.median(unprof) * 1e3:.1f} ms) vs phase 6's "
+            f"bare step (B=4 + 4 on tensors made on the card) "
+            f"{bare_step_sec * 1e3:.1f} ms, on {card}")
+        log(f"  loader wait per step: median "
+            f"{statistics.median(wait_s) * 1e3:.1f} ms "
+            f"({[round(x * 1e3, 1) for x in wait_s]} ms), "
+            f"{100 * sum(wait_s) / sum(step_s):.1f} % of the steps' wall "
+            f"time; first step {timing[0]['data_wait_s'] * 1e3:.1f} ms of "
+            f"{timing[0]['step_s'] * 1e3:.1f} ms")
+        # the fit's last step again from the state it left, on its batch
+        # (B=2 + 2: 4-row student passes), with its draws and on the
+        # Refign branch: kernels against plain versions at phase 6's limits
+        trainer, batch, draws = probe.last
+        for refign in sorted({not draws.use_ref_as_target, True}):
+            d = dataclasses.replace(draws, use_ref_as_target=not refign)
+            compare_step(
+                f"cli fit's last step, "
+                f"{'Refign' if refign else 'ref as target'} branch",
+                *grads_kernels_vs_plain(trainer, batch, draws=d),
+                TRAIN_BF16_LOSS_REL, TRAIN_BF16_GRAD_REL,
+                TRAIN_BF16_TOTAL_REL, TRAIN_BF16_MEDIAN_REL)
+        del trainer, batch, draws
+        # the fit's own trainer on its last batch, the loader stopped
+        alone = time_alone(probe.real, probe.last)
+        probe.last = None
+        log(f"  the same step on the fit's last batch with the loader "
+            f"stopped: {[round(x * 1e3, 1) for x in alone]} ms, median "
+            f"{statistics.median(alone) * 1e3:.1f} ms")
+        if probe.prof is not None:
+            share, n_ev = busy_share(probe.prof, probe.window)
+            log(f"  profiled fit steps {RUNTIME_PROFILED[0] + 1}-"
+                f"{RUNTIME_PROFILED[-1] + 1}: {probe.window * 1e3:.1f} ms "
+                f"window, device busy {100 * share:.1f} % ({n_ev} device "
+                f"events, kernels and copies)")
+            report_profile(probe.prof, probe.window, "fit window", top_n=12)
+        for (a, out, sec) in saves.calls:
+            size = os.path.getsize(out)
+            log(f"  checkpoint {os.path.basename(out)}: {size / 2 ** 30:.3f} "
+                f"GiB written in {sec:.2f} s ({size / 2 ** 30 / sec:.2f} "
+                f"GiB/s)")
+        if len(saves.calls) != 1:
+            raise AssertionError(f"{len(saves.calls)} checkpoints written")
+        fit_val = [c for c in evals.calls if c[0][1] == "val"]
+        fit_iou = fit_val[-1][1]
+        fit_conf = fit_val[-1][0][0].last_confmats
+        if fit_iou != {k: v for k, v in lines[-1].items() if k != "step"}:
+            raise AssertionError(f"logged {lines[-1]} vs {fit_iou}")
+
+        fit_fwd = [sec / a[2].shape[0] for a, _, sec in fwds.calls]
+
+        # validate after the reload
+        evals.calls.clear()
+        fwds.calls.clear()
+        last = os.path.join(wd, "checkpoints", "last")
+        reset()
+        try:
+            cli.main(["validate", "--ckpt_path", last] + common)
+        finally:
+            fwds.restore()
+        val_launches = read()
+        (args, val_iou, _), = evals.calls
+        if val_iou != fit_iou:
+            raise AssertionError(f"validate after reload {val_iou} != the "
+                                 f"fit's last validation {fit_iou}")
+        for name, conf in fit_conf.items():
+            for ig, c in conf.items():
+                if not torch.equal(c, args[0].last_confmats[name][ig]):
+                    raise AssertionError(f"{name} confusion matrices differ")
+        per_image = fit_fwd + [sec / a[2].shape[0]
+                               for a, _, sec in fwds.calls]
+        log(f"  validate after reload: {val_iou} (= the fit's last "
+            f"validation, confusion matrices identical); launches "
+            f"{val_launches}; forward per 1080x1920 image (slide "
+            f"inference, fp32) {[round(x * 1e3, 1) for x in per_image]} ms "
+            f"over the fit's and this validation, median "
+            f"{statistics.median(per_image) * 1e3:.1f} ms")
+        if not (val_launches["sra_attention"]
+                and val_launches["dwconv3x3_gelu"]):
+            raise AssertionError(f"validate launches {val_launches}")
+        evals.restore()
+        check_eval_plain(fwds.real, fwds.calls[0],
+                         lambda task: task.datamodule.eval_dataloaders("val"))
+        fwds.calls.clear()
+
+        # predict
+        preds = Recorder(seg_task.SegTask, "predict")
+        fwds = Recorder(seg_task.SegTask, "forward")
+        try:
+            reset()
+            cli.main(["predict", "--ckpt_path", last] + common)
+            pred_launches = read()
+        finally:
+            preds.restore()
+            fwds.restore()
+        from PIL import Image
+        from refign_tpu_torch.data.datasets.seg_datasets import ACDC
+        for sub in ("preds", "color_preds"):
+            d = os.path.join(wd, sub, "ACDC")
+            files = sorted(os.listdir(d))
+            sizes = {Image.open(os.path.join(d, f)).size for f in files}
+            if len(files) != 2 or sizes != {ACDC.orig_dims[::-1]}:
+                raise AssertionError(f"{sub}: {files} sizes {sizes}")
+        per_image = [sec / a[2].shape[0] for a, _, sec in fwds.calls]
+        fwds.calls.clear()
+        (_, _, pred_sec), = preds.calls
+        log(f"  predict: 2 trainId and 2 colour PNGs at 1080x1920; forward "
+            f"per image {[round(x * 1e3, 1) for x in per_image]} ms; the "
+            f"whole call {pred_sec * 1e3:.1f} ms (the checkpoint's restore "
+            f"and the loader's start, the forwards, the PNG writes); "
+            f"launches {pred_launches}")
+
+        # UAWarpC stage 1: fit 3 steps, then validate
+        wd1 = os.path.join(root, "stage1")
+        common1 = ["--config", STAGE1_YAML, "--data_dir", data,
+                   "--workdir", wd1,
+                   "--model.init_args.alignment_backbone.init_args."
+                   "pretrained", weights["vgg16"]]
+        aprobe = StepProbe(atr, counted)
+        try:
+            reset()
+            cli.main(["fit"] + common1 + [
+                "--trainer.max_steps", str(RUNTIME_ALIGN_STEPS),
+                "--trainer.val_every_n_steps", str(RUNTIME_ALIGN_STEPS),
+                "--trainer.log_every_n_steps", "1"])
+            align_launches = read()
+        finally:
+            aprobe.restore()
+        want = {n: ALIGN_TRAIN_LAUNCHES.get(n, 0) for n in counted}
+        for i, s in enumerate(aprobe.steps):
+            if s["launches"] != want:
+                raise AssertionError(f"UAWarpC fit step {i + 1}: launches "
+                                     f"{s['launches']}, expected {want}")
+        lines = _jsonl(os.path.join(wd1, "metrics.jsonl"))
+        if not all(_finite(l) for l in lines):
+            raise AssertionError(f"non-finite UAWarpC logs: {lines}")
+        atiming = _jsonl(os.path.join(wd1, "timing.jsonl"))
+        astep = [t["step_s"] for t in atiming[1:]]
+        await_ = [t["data_wait_s"] for t in atiming[1:]]
+        aalone = time_alone(aprobe.real, aprobe.last)
+        aprobe.last = None
+        log(f"  cli UAWarpC fit step (B=6 750^2 -> 520^2, steps 2-"
+            f"{RUNTIME_ALIGN_STEPS}): {[round(x * 1e3, 1) for x in astep]} "
+            f"ms, loader wait {[round(x * 1e3, 1) for x in await_]} ms; the "
+            f"same step on the fit's last batch with the loader stopped "
+            f"{[round(x * 1e3, 1) for x in aalone]} ms; phase 6b's bare step "
+            f"{bare_align_sec * 1e3:.1f} ms; on {card}; launches per step "
+            f"{aprobe.steps[-1]['launches']}")
+        reset()
+        cli.main(["validate", "--ckpt_path",
+                  os.path.join(wd1, "checkpoints", "last")] + common1)
+        aval = json.load(open(os.path.join(wd1, "val_metrics.json")))
+        if not _finite(aval) or aval != {k: v for k, v in lines[-1].items()
+                                         if k != "step"}:
+            raise AssertionError(f"UAWarpC validate {aval} vs the fit's "
+                                 f"{lines[-1]}")
+        log(f"  UAWarpC validate after reload: {aval}; launches {read()}")
+
+        # Refign-DeepLabV2 test (no hand-written kernel on its path)
+        wd2 = os.path.join(root, "deeplabv2")
+        reset()
+        cli.main(["test", "--config", DL_YAML, "--data_dir", data,
+                  "--workdir", wd2,
+                  "--model.init_args.backbone.init_args.pretrained", "null",
+                  "--model.init_args.alignment_backbone.init_args.pretrained",
+                  weights["vgg16"],
+                  "--model.init_args.alignment_head.init_args.pretrained",
+                  weights["uawarpc"]])
+        dl = json.load(open(os.path.join(wd2, "test_metrics.json")))
+        if not _finite(dl) or any(read().values()):
+            raise AssertionError(f"DeepLabV2 test {dl}, launches {read()}")
+        log(f"  Refign-DeepLabV2 test: {dl}; no kernel launched")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sec = time.perf_counter() - t_phase
+    log(f"  runtime phase took {sec:.1f} s")
+    return fit_launches, sec
+
+
 KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K1 sra_attention", ("sra_attention_kernel",)),
     ("K1 backward", ("attn_bwd_",)),
@@ -1764,6 +2281,13 @@ def profile_device(fn, sec, what, top_n=12):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    report_profile(prof, sec, what, top_n)
+
+
+def report_profile(prof, sec, what, top_n=12):
+    """Log a profile's device time by kernel group and its ``top_n``
+    kernels; ``sec`` is the host-clock time it covers."""
+    import torch
     groups, top = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -1839,6 +2363,9 @@ def main() -> int:
     train_launches["local_correlation_backward"] = 0
     log("[6c/7] Refign-DeepLabV2: inference and UDA train step")
     dl_launches, dl_sec, dl_peak = phase_deeplabv2(card)
+    log("[6d/7] runtime: the CLI's fit, validate, predict and test on "
+        "synthetic trees at the datasets' sizes")
+    rt_launches, rt_sec = phase_runtime(card, train_sec, align_train_sec)
 
     log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
     sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
@@ -1877,6 +2404,7 @@ def main() -> int:
             launches_train_step=train_launches[name],
             launches_align_train_step=ALIGN_TRAIN_LAUNCHES.get(name, 0),
             launches_deeplabv2_step=dl_launches[name],
+            launches_cli_fit=rt_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
             ms=ms, plain_ms=per_call("plain_ms"), bound_ms=bound,

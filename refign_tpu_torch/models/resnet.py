@@ -112,6 +112,7 @@ class ResNet(nn.Module):
                  contract_dilation: bool = False, norm_eval: bool = False,
                  max_pool_ceil_mode: bool = False, remat: bool = False):
         super().__init__()
+        self.model_type = model_type
         if model_type not in ARCH_SETTINGS:
             raise ValueError(f"unknown ResNet {model_type!r}; one of "
                              f"{sorted(ARCH_SETTINGS)}")

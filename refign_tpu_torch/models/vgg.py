@@ -48,6 +48,7 @@ class VGG(nn.Module):
         if model_type not in ARCH_SETTINGS:
             raise ValueError(f"unknown VGG model_type {model_type!r}; one of "
                              f"{sorted(ARCH_SETTINGS)}")
+        self.model_type = model_type
         cfg_key, batch_norm = ARCH_SETTINGS[model_type]
         cfg = CFGS[cfg_key]
         step = 3 if batch_norm else 2  # conv (+ BN) + ReLU positions
@@ -58,6 +59,7 @@ class VGG(nn.Module):
             idx += 1 if v == "M" else step
             if v == "M" or not level_marks:
                 level_marks.append(idx)
+        self.out_indices = tuple(out_indices)
         self.selected = [level_marks[i] for i in out_indices]
         # layers up to the last selected level only, as the JAX module
         # creates them: ("pool", None) or ("conv", Sequential index)

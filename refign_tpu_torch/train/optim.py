@@ -25,6 +25,12 @@ Groups: head/backbone x weight/bias, backbone groups at
 rank <= 1.  The schedule is the linear warmup + polynomial decay of each
 group's OWN base rate with a shared ``min_lr`` floor, computed in fp32 as
 the JAX schedule is.
+
+Gradient accumulation (``accumulate_steps`` k > 1, the JAX package's
+``optax.MultiSteps``): :class:`MultiSteps` keeps the running mean of the
+gradients of k calls and updates with it on every k-th call; the other
+calls leave the parameters as they are.  The schedule and the Adam moments
+count updates, not calls.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 from torch import nn
 
 __all__ = ["warmup_poly_lr", "param_group_label", "make_uda_optimizer",
-           "WarmupPolyLR", "multistep_lr", "MultiStepLR",
+           "MultiSteps", "WarmupPolyLR", "multistep_lr", "MultiStepLR",
            "make_adam_optimizer"]
 
 
@@ -61,9 +67,81 @@ def param_group_label(name: str, p: torch.Tensor) -> str:
     return kind + ("_bias" if p.dim() <= 1 else "_weight")
 
 
+class MultiSteps:
+    """Applies ``inner`` every ``k``-th :meth:`step` with the mean of the
+    gradients of the k calls (``optax.MultiSteps``: the running mean
+    ``(g + n * acc) / (n + 1)`` in fp32).  ``param_groups`` and the state
+    are the inner optimizer's; ``gradient_step`` counts the updates."""
+
+    def __init__(self, inner: torch.optim.Optimizer, k: int):
+        self.inner = inner
+        self.k = int(k)
+        self.mini_step = 0
+        self.gradient_step = 0
+        self.acc: Dict[torch.Tensor, torch.Tensor] = {}
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def _params(self) -> List[torch.Tensor]:
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        n = self.mini_step
+        for p in self._params():
+            if p.grad is None:
+                continue
+            acc = self.acc.get(p)
+            g = p.grad if acc is None else (p.grad + n * acc) / (n + 1)
+            if n + 1 < self.k:
+                self.acc[p] = g.clone()
+            else:
+                p.grad = g
+        if n + 1 < self.k:
+            self.mini_step += 1
+            return
+        self.inner.step()
+        self.acc = {}
+        self.mini_step = 0
+        self.gradient_step += 1
+
+    def state_dict(self) -> dict:
+        params = self._params()
+        return {"inner": self.inner.state_dict(),
+                "mini_step": self.mini_step,
+                "gradient_step": self.gradient_step,
+                "acc": {i: self.acc[p] for i, p in enumerate(params)
+                        if p in self.acc}}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.mini_step = int(sd["mini_step"])
+        self.gradient_step = int(sd["gradient_step"])
+        params = self._params()
+        self.acc = {params[int(i)]: t.to(params[int(i)].device)
+                    for i, t in sd["acc"].items()}
+
+
+def update_count(optimizer, step: int) -> int:
+    """The update count of ``optimizer`` at call ``step``: the calls
+    themselves, or :class:`MultiSteps`' updates."""
+    return optimizer.gradient_step if isinstance(optimizer,
+                                                 MultiSteps) else step
+
+
 class WarmupPolyLR:
-    """Sets every group's learning rate for update count ``step``: the
-    warmup-poly schedule of the group's own base rate."""
+    """Sets every group's learning rate for update count ``step`` (under
+    :class:`MultiSteps`, its own update count): the warmup-poly schedule
+    of the group's own base rate."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, max_steps: int,
                  warmup_iters: int = 1500, warmup_ratio: float = 1e-6,
@@ -73,6 +151,7 @@ class WarmupPolyLR:
                        warmup_ratio=warmup_ratio, power=power, min_lr=min_lr)
 
     def set_step(self, step: int) -> List[float]:
+        step = update_count(self.optimizer, step)
         lrs = []
         for g in self.optimizer.param_groups:
             g["lr"] = warmup_poly_lr(step, g["base_lr"], **self.kw)
@@ -85,10 +164,12 @@ def make_uda_optimizer(model: nn.Module, base_lr: float,
                        backbone_lr_factor: float = 0.1,
                        warmup_iters: int = 1500, power: float = 0.9,
                        warmup_ratio: float = 1e-6, min_lr: float = 0.0,
-                       betas=(0.9, 0.999), eps: float = 1e-8
-                       ) -> Tuple[torch.optim.AdamW, WarmupPolyLR]:
+                       betas=(0.9, 0.999), eps: float = 1e-8,
+                       accumulate_steps: int = 1):
     """AdamW over ``model``'s trainable parameters in the 4 groups, and
-    its schedule.  Each group keeps its ``label`` and ``base_lr``."""
+    its schedule.  Each group keeps its ``label`` and ``base_lr``.  With
+    ``accumulate_steps`` > 1 the optimizer is AdamW under
+    :class:`MultiSteps`."""
     groups: Dict[str, List[torch.Tensor]] = {
         k: [] for k in ("head_weight", "head_bias", "backbone_weight",
                         "backbone_bias")}
@@ -105,6 +186,8 @@ def make_uda_optimizer(model: nn.Module, base_lr: float,
             lr=base_lr * factor,
             weight_decay=0.0 if label.endswith("_bias") else weight_decay))
     opt = torch.optim.AdamW(param_groups, lr=base_lr, betas=betas, eps=eps)
+    if accumulate_steps > 1:
+        opt = MultiSteps(opt, accumulate_steps)
     sched = WarmupPolyLR(opt, max_steps, warmup_iters=warmup_iters,
                          warmup_ratio=warmup_ratio, power=power,
                          min_lr=min_lr)

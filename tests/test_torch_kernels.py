@@ -156,7 +156,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "want = {'refign_tpu_torch.models.resnet', 'refign_tpu_torch.metrics',\n"
-        "        'refign_tpu_torch.models.heads.deeplabv2'}\n"
+        "        'refign_tpu_torch.models.heads.deeplabv2',\n"
+        "        'refign_tpu_torch.data.loader', 'refign_tpu_torch.data.module',\n"
+        "        'refign_tpu_torch.tasks.seg_task',\n"
+        "        'refign_tpu_torch.tasks.align_task', 'refign_tpu_torch.cli',\n"
+        "        'refign_tpu_torch.config'}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'flax')\n"
         "             or k.startswith(('jax.', 'flax.'))\n"

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.resize import interpolate
 from ..ops.warp import gt_correspondence_mask, warp
+from ..parallel import mesh
 
 __all__ = ["huber", "multi_scale_flow_loss", "wbipath_loss",
            "adaptive_loss_weights"]
@@ -57,11 +58,15 @@ def _downsample_mask(mask: torch.Tensor, hw: Tuple[int, int]
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
                  ) -> torch.Tensor:
+    """The masked mean of x, 0 on an empty mask; under a process group
+    over every rank's mask (this rank's share of the global mean,
+    ``parallel/mesh.py:masked_mean``)."""
     if mask is None:
         return x.mean()
     m = mask.to(x.dtype)
-    total = m.sum()
-    return torch.where(total > 0, (x * m).sum() / total.clamp_min(1.0),
+    total = mesh.all_reduce_sum(m.sum())
+    share = (x * m).sum() * mesh.world_size() / total.clamp_min(1.0)
+    return torch.where(total > 0, share,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 

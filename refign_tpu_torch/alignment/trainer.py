@@ -30,7 +30,12 @@ the coins, the photometric factors, each image's transform and its
 parameters, the elastic blobs), except the two (H, W) noise fields of each
 elastic flow, which a device generator seeded from the draws makes; a test
 pins any of them by building :class:`AlignDraws` by hand or by passing the
-noise.  ``remat_modules`` (the stage default) recomputes each decoder,
+noise.  Under a process group (``parallel/mesh.py``) every rank draws
+the global batch's draws, noise fields included, and keeps its rows
+(:meth:`AlignDraws.rows`); the head passes run in a ``sharded_pass``
+(sync-BN), the masked means count every rank's mask, the adaptive weights
+come from the global losses and the gradients are averaged.
+``remat_modules`` (the stage default) recomputes each decoder,
 refinement and uncertainty module in the backward, its BN statistics
 updated once.  The JAX step's other options, which fit the step into a
 TPU's memory (``fold_passes`` with grouped BatchNorm, ``remat_head`` and
@@ -47,6 +52,7 @@ from torch import nn
 
 from ..ops.resize import interpolate
 from ..ops.warp import confidence_from_logvar
+from ..parallel import mesh
 from ..parallel.mesh import apply_cast, cast_floating, cast_params
 from ..train.optim import MultiStepLR
 from ..uda.dacs import (JitterFactors, color_jitter_bcsh, denorm,
@@ -174,11 +180,21 @@ class AlignDraws:
     """Every random number of one step, drawn on the host: per image the
     coin (1: the prime derives from the target), the photometric draws and
     the flow's; and the seed of the device generator of the elastic noise
-    fields."""
+    fields.  ``noise_rows`` (first, count of the batch the noise fields
+    are drawn for): the rows of a global batch these draws belong to, or
+    None for all."""
     prime_trg_idx: Tuple[int, ...]
     photometric: List[PrimeDraws]
     flows: List[FlowDraws]
     noise_seed: int = 0
+    noise_rows: Optional[Tuple[int, int]] = None
+
+    def rows(self, sl: slice) -> "AlignDraws":
+        """The draws of the images ``sl`` of the batch."""
+        return dataclasses.replace(
+            self, prime_trg_idx=self.prime_trg_idx[sl],
+            photometric=self.photometric[sl], flows=self.flows[sl],
+            noise_rows=(sl.start, len(self.flows)))
 
 
 def _photometric_on(cfg: AlignConfig) -> bool:
@@ -269,7 +285,8 @@ def prepare_alignment_batch(draws: AlignDraws, images_ref: torch.Tensor,
     if noise is None and any(f.elastic is not None for f in draws.flows):
         gen = torch.Generator(device=base.device).manual_seed(
             draws.noise_seed)
-        noise = draw_elastic_noise(gen, B, H, W)
+        first, total = draws.noise_rows or (0, B)
+        noise = draw_elastic_noise(gen, total, H, W)[first:first + B]
     image_prime, flow_prime, mask_prime = batched_composite_flow(
         draws.flows, base, out_slice=out_slice, noise=noise)
     return {"image_prime": image_prime, "flow_prime": flow_prime,
@@ -343,9 +360,23 @@ def forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                      ) -> Dict[str, torch.Tensor]:
     """A step without its update: the prime view, the pyramids, the three
     head passes, the losses and one backward, which leaves the gradient in
-    the head's ``.grad``.  batch: ``image_ref``, ``image_trg`` (B, H, W, 3)
-    normalised, or uint8 (normalised here).  Returns the logs as
-    0-d fp32 tensors on the device."""
+    the head's ``.grad`` (averaged over the ranks under a process group).
+    batch: ``image_ref``, ``image_trg`` (B, H, W, 3) normalised, or uint8
+    (normalised here).  Returns the logs as 0-d fp32 tensors on the
+    device.  ``batch``, ``draws`` and ``noise`` (pinned elastic noise
+    fields, see :func:`prepare_alignment_batch`) are the global batch's;
+    under a process group the step keeps this rank's rows of them."""
+    sl = mesh.shard_of(batch["image_trg"].shape[0])
+    if sl is not None:
+        draws = draws.rows(sl)
+    local = mesh.shard_batch({**batch, "noise": noise})
+    with mesh.sharded_pass(sl):
+        return _forward_backward(trainer, local, draws, local.pop("noise"))
+
+
+def _forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
+                      draws: AlignDraws, noise: Optional[torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
     cfg, state = trainer.cfg, trainer.state
     cdt = cfg.dtype
     images_ref = device_normalize(batch["image_ref"])
@@ -387,12 +418,16 @@ def forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                                prime["mask_prime"])
     us = wbipath_loss(prime_j, j_i, prime["flow_prime"], prime["mask_prime"],
                       visibility_mask=cfg.visibility_mask)
-    w_ss, w_us = adaptive_loss_weights(ss, us, weight_ss=WEIGHT_SS)
+    # the weights from the global losses: the same on every rank
+    ss_all, us_all = mesh.mean_over_ranks(
+        torch.stack([ss.detach(), us.detach()])).unbind()
+    w_ss, w_us = adaptive_loss_weights(ss_all, us_all, weight_ss=WEIGHT_SS)
     loss = w_ss * ss + w_us * us
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    return {"train_matching_loss": loss.detach(), "loss_ss": ss.detach(),
-            "loss_us": us.detach()}
+    mesh.reduce_gradients(head.parameters())
+    return {"train_matching_loss": mesh.mean_over_ranks(loss.detach()),
+            "loss_ss": ss_all, "loss_us": us_all}
 
 
 def train_step(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
@@ -400,7 +435,7 @@ def train_step(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                ) -> Dict[str, torch.Tensor]:
     """One UAWarpC step in place on ``trainer.state``:
     :func:`forward_backward`, then Adam at the schedule's rate for the
-    update count."""
+    update count (the same update on every rank)."""
     logs = forward_backward(trainer, batch, draws, noise)
     state = trainer.state
     state.scheduler.set_step(state.step)

@@ -10,6 +10,16 @@ Reference-schema YAML configs; dot-overrides for any config key
 (``--trainer.max_steps 10``, ``--data.init_args.batch_size 2``), with a
 typo guard on sections.  The run is on the card; ``--device cpu`` runs it
 on the CPU, and without a card and without that flag it raises.
+
+Data parallel: under torch's launcher,
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m refign_tpu_torch.cli fit --config ... [--device cpu]
+
+each process reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT`` and joins the process group (NCCL, rank
+r on ``cuda:LOCAL_RANK``; gloo with ``--device cpu``); the group is
+destroyed at exit.  Rank 0 alone prints results and writes files.
 """
 from __future__ import annotations
 
@@ -67,7 +77,7 @@ def main(argv: List[str] = None) -> int:
     parser.add_argument("--device", default="cuda")
     args, overrides = parser.parse_known_args(argv)
 
-    from .config import build_task, load_yaml
+    from .config import load_yaml
     cfg = load_yaml(args.config)
     i = 0
     while i < len(overrides):
@@ -104,8 +114,19 @@ def main(argv: List[str] = None) -> int:
     # fp32 products in full fp32, as the JAX package sets
     # jax_default_matmul_precision="highest" (bf16 compute is unaffected)
     from . import full_fp32_precision
+    from .parallel import mesh
     full_fp32_precision()
-    task, _ = build_task(cfg, data_dir=args.data_dir, device=args.device)
+    _, _, device = mesh.init_distributed(args.device)
+    try:
+        return _run(args, cfg, seed, workdir, device)
+    finally:
+        mesh.destroy_distributed()
+
+
+def _run(args, cfg, seed: int, workdir: str, device) -> int:
+    from .config import build_task
+    from .parallel import mesh
+    task, _ = build_task(cfg, data_dir=args.data_dir, device=device)
     if args.subcommand == "predict" and not hasattr(task, "predict"):
         raise SystemExit(
             f"'predict' is not supported for {type(task).__name__} "
@@ -119,10 +140,12 @@ def main(argv: List[str] = None) -> int:
     if args.subcommand in ("validate", "test"):
         stage = "val" if args.subcommand == "validate" else "test"
         metrics = task.evaluate(stage, trainer)
-        print(json.dumps(metrics, indent=2))
-        os.makedirs(workdir, exist_ok=True)
-        with open(os.path.join(workdir, f"{stage}_metrics.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
+        if mesh.is_main():
+            print(json.dumps(metrics, indent=2))
+            os.makedirs(workdir, exist_ok=True)
+            with open(os.path.join(workdir, f"{stage}_metrics.json"),
+                      "w") as f:
+                json.dump(metrics, f, indent=2)
         return 0
 
     task.predict(workdir, trainer)

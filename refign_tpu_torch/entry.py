@@ -36,6 +36,13 @@ the ``configs/megadepth/uawarpc_stage{1,2}.yaml`` settings):
 (fp32 masters) and Adam with MultiStepLR, from a seed;
 ``align_train_step`` takes one step on a batch of image pairs, its random
 draws made from a host generator.
+
+Data parallel (one process per card over ``torch.distributed``,
+``parallel/mesh.py``): under a process group both step entry points take
+the global batch, draw for all of it and run this rank's rows.
+``dryrun_multigpu`` spawns n ranks (gloo on the CPU, NCCL over n cards)
+and runs one full Refign-HRDA step on each (the counterpart of
+``__graft_entry__.dryrun_multichip``).
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from .models.mix_transformer import MixVisionTransformer
 from .models.resnet import ARCH_SETTINGS as RESNETS, ResNet
 from .models.segmentor import Segmentor, slide_inference
 from .models.vgg import VGG
+from .parallel import mesh
 from .parallel.mesh import cast_floating
 from .train.optim import make_adam_optimizer, make_uda_optimizer
 from .uda.refine import refine
@@ -307,7 +315,9 @@ def uda_train_step(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
     ``image_trg``, ``image_ref`` (B, H, W, 3) normalised images (or uint8
     with ``device_normalize``) and ``semantic_src`` (B, H, W) labels, moved
     to the trainer's device; ``generator``: a CPU generator for the step's
-    random draws.  Returns the losses as 0-d tensors on the device."""
+    random draws.  Returns the losses as 0-d tensors on the device.  Under
+    a process group ``batch`` is the global batch and the losses are its
+    (every rank's generator in the same state)."""
     dev = next(trainer.state.student.parameters()).device
     batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
     draws = draw_step(trainer.cfg, batch, generator)
@@ -354,9 +364,69 @@ def align_train_step(trainer: align_trainer.AlignTrainer,
     and ``image_trg`` (B, H, W, 3), uint8 (normalised on the device) or
     normalised floats, moved to the trainer's device; ``generator``: a CPU
     generator for the step's random draws.  Returns ``train_matching_loss``,
-    ``loss_ss`` and ``loss_us`` as 0-d tensors on the device."""
+    ``loss_ss`` and ``loss_us`` as 0-d tensors on the device.  Under a
+    process group ``batch`` is the global batch and the losses are its."""
     dev = next(trainer.state.head.parameters()).device
     batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
     B, H, W = batch["image_trg"].shape[:3]
     draws = align_trainer.draw_align(trainer.cfg, B, H, W, generator)
     return align_trainer.train_step(trainer, batch, draws)
+
+
+def _dryrun_rank(rank: int, world: int, device: str, port: int) -> None:
+    """One rank of :func:`dryrun_multigpu`."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world),
+           "LOCAL_RANK": str(rank), "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    torch.set_num_threads(1)
+    _, _, dev = mesh.init_distributed(device, env=env)
+    try:
+        cfg = dataclasses.replace(REFIGN_HRDA_STAR,
+                                  compute_dtype="float32"
+                                  if dev.type == "cpu" else "bfloat16")
+        trainer = build_uda_trainer("mit_b0", cfg=cfg, device=dev,
+                                    channels=32)
+        gen = torch.Generator().manual_seed(0)
+        B, S = 2 * world, 64
+        batch = dict(image_src=torch.randn(B, S, S, 3, generator=gen),
+                     image_trg=torch.randn(B, S, S, 3, generator=gen),
+                     image_ref=torch.randn(B, S, S, 3, generator=gen),
+                     semantic_src=torch.randint(0, 19, (B, S, S),
+                                                generator=gen))
+        draws = draw_step(cfg, batch, gen)
+        draws.use_ref_as_target = False   # the refine branch
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        logs = train_step(trainer, batch, draws)
+        loss = float(logs["train_loss_total"])
+        if not loss == loss or abs(loss) == float("inf"):
+            raise RuntimeError(f"rank {rank}: loss {loss}")
+        st = trainer.state
+        diff = mesh.max_param_divergence([st.student, st.teacher])
+        if diff != 0.0:
+            raise RuntimeError(f"parameters differ across ranks by {diff}")
+        if rank == 0:
+            print(f"dryrun_multigpu({world}) on {dev.type}: train step ok, "
+                  f"loss={loss:.4f}, parameters equal on every rank",
+                  flush=True)
+    finally:
+        mesh.destroy_distributed()
+
+
+def dryrun_multigpu(n: int, device: str = "cuda") -> None:
+    """One full Refign-HRDA step (mit_b0, 32-wide heads, VGG-16 + UAWarpC,
+    64^2, two images a rank, the refine branch) on ``n`` ranks: gloo on
+    the CPU for ``device='cpu'``, NCCL over ``n`` cards otherwise (raises
+    without them).  Checks the loss is finite and every parameter equal
+    on every rank.  The ranks meet on a free port of localhost."""
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.device_count() < n:
+        raise RuntimeError(f"dryrun_multigpu({n}) needs {n} CUDA devices, "
+                           f"found {torch.cuda.device_count()}; pass "
+                           f"device='cpu' for gloo on the CPU")
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_dryrun_rank, args=(n, device, port), nprocs=n,
+                       start_method="spawn")

@@ -2,8 +2,10 @@
 a confusion matrix, accumulated on the device.
 
 The JAX package keeps the state a pytree that ``jax.lax.psum`` reduces
-across devices; on one card the state is a plain tensor, and a sum of the
-per-card matrices reduces it.  SparseEPE lives in ``utils/sparse_epe.py``.
+across devices; here the state is a plain int64 tensor.  Under a process
+group every rank holds the whole prediction (the evaluation row spread
+reassembles it, ``parallel/mesh.py``), so every rank's matrix is already
+the global one.  SparseEPE lives in ``utils/sparse_epe.py``.
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@
 * sliding-window inference: every crop of the grid in one batch, then
   folded back.
 
+Under an active evaluation row spread (``parallel/mesh.py:compute_mesh``,
+the JAX ``shard_rows`` of ``refign_tpu/models/segmentor.py:189``), each
+rank runs its share of the row stack (HRDA's LR rows and crops, or the
+rows of a plain forward, e.g. the slide crops) and the head logits (and
+the scale attention of the LR rows) are reassembled on every rank before
+the fold.
+
 BatchNorm follows the module's mode (batch statistics in train mode, as
 the EMA teacher's ``whole`` runs them); dropout and drop-path draw from a
 generator where one is passed (``logits``, ``logits_and_features``,
@@ -29,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import interpolate
+from ..parallel import mesh
 
 
 def compute_slide_boxes(img_size: Tuple[int, int],
@@ -144,7 +152,7 @@ class Segmentor(nn.Module):
         if self.scale_attention is not None:
             logits = self.hrda_eval(x)
         else:
-            logits = self.logits(x)
+            logits = mesh.shard_rows(self.logits, x)
         return interpolate(logits, x.shape[1:3], mode="bilinear",
                            align_corners=False)
 
@@ -158,12 +166,15 @@ class Segmentor(nn.Module):
         boxes = compute_slide_boxes((H, W), (ch, cw), (ch // 2, cw // 2))
         both = torch.cat([lr_x] + [x[:, y1:y2, x1:x2]
                                    for (y1, y2, x1, x2) in boxes], dim=0)
-        both_feats = self.backbone(both)
-        lr_feats = [f[:B] for f in both_feats]
-        both_seg = self.head(both_feats)
+        if mesh.active_mesh():
+            both_seg, att = self._spread_rows(both, B)
+        else:
+            both_feats = self.backbone(both)
+            both_seg = self.head(both_feats)
+            att = torch.sigmoid(self.scale_attention(
+                [f[:B] for f in both_feats]))
         lr_seg, crop_seg = both_seg[:B], both_seg[B:]
 
-        att = torch.sigmoid(self.scale_attention(lr_feats))
         lr_seg = (1.0 - att) * lr_seg
         gh, gw = lr_seg.shape[1:3]
         up_lr_seg = interpolate(lr_seg, (2 * gh, 2 * gw), mode="bilinear",
@@ -174,6 +185,22 @@ class Segmentor(nn.Module):
                         for (y1, y2, x1, x2) in boxes]
         hr_seg = fold_crops(crop_seg, scaled_boxes, (H // os_, W // os_), B)
         return up_att * hr_seg + up_lr_seg
+
+    def _spread_rows(self, both: torch.Tensor, B: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``hrda_eval``'s head logits of every row and the scale attention
+        of its first ``B`` (LR) rows, each rank running its share of the
+        rows (a rank with none runs one for the shapes), reassembled on
+        every rank."""
+        n = both.shape[0]
+        lo, hi = mesh.row_share(n)
+        feats = self.backbone(both[lo:hi] if hi > lo else both[:1])
+        seg = self.head(feats)[:hi - lo]
+        n_lr = max(0, min(B, hi) - lo)
+        att = torch.sigmoid(self.scale_attention(
+            [f[:max(n_lr, 1)] for f in feats]))[:n_lr]
+        return (mesh.gather_rows(seg, n, lo),
+                mesh.gather_rows(att, B, min(lo, B)))
 
     def forward(self, x: torch.Tensor, *args, method: str = "whole",
                 **kwargs):

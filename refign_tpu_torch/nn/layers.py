@@ -13,13 +13,20 @@ Numerics kept from the JAX package:
   input, applies the fp32 fold ``y = x*a + b``
   (``refign_tpu/nn/layers.py:248-260``).  In train mode it normalises with
   the batch statistics (biased variance as E[x^2]-E[x]^2) and updates the
-  running ones with the unbiased variance; ``groups > 1`` and sync-BN are
-  not ported.
+  running ones with the unbiased variance.  Inside a sharded pass of a
+  process group (``parallel/mesh.py:sharded_pass``) it is sync-BN: the
+  per-channel means of x and x^2 are averaged over the ranks (JAX's
+  ``axis_name`` pmean) by a sum whose backward sums the gradients over the
+  ranks, and the unbiased variance counts the global batch.  ``groups >
+  1`` is not ported.
 * ``DropPath`` and ``Dropout2d`` draw from an explicit ``torch.Generator``
-  passed to them in train mode, where a rate > 0 needs one.
+  passed to them in train mode, where a rate > 0 needs one; in a sharded
+  pass they draw the global batch's masks and keep this rank's rows.
 * :func:`remat_call` recomputes a module in the backward (non-reentrant
   checkpoint) and updates its BatchNorm running statistics once, in the
-  forward, as JAX's ``nn.remat`` returns ``batch_stats`` once.
+  forward, as JAX's ``nn.remat`` returns ``batch_stats`` once; sync-BN's
+  recompute replays the forward's reduced statistics instead of reducing
+  again.
 * ``gelu`` is the exact erf form; ``leaky_relu`` has slope 0.1, as in
   the matching modules.
 """
@@ -34,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel import mesh
 
 __all__ = [
     "gelu", "leaky_relu", "Linear", "TorchLayerNorm", "TorchBatchNorm",
@@ -152,21 +161,43 @@ class TorchBatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.update_stats = True
+        # remat_call's bookkeeping of the reduced statistics: recorded in
+        # the forward, replayed by the recompute
+        self.sync_record: Optional[list] = None
+        self.sync_replay: Optional[list] = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _synced(self, mean: torch.Tensor, mean_sq: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The means of x and x^2 averaged over the ranks (every rank's
+        share has the same count)."""
+        C = mean.shape[0]
+        cached = self.sync_replay.pop(0) if self.sync_replay else None
+        total = mesh.sum_over_ranks(torch.cat([mean, mean_sq]), cached)
+        if self.sync_record is not None:
+            self.sync_record.append(total.detach())
+        total = total / mesh.world_size()
+        return total[:C], total[C:]
+
     def _batch_stats(self, x32: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         n = x32.numel() // x32.shape[-1]
+        sync = mesh.reducing()
+        if sync:
+            n *= mesh.world_size()
         if n < 2:
             # torch.nn.BatchNorm2d's rule: one value has no variance
             raise ValueError(f"BatchNorm in train mode needs more than one "
                              f"value per channel, got input {tuple(x32.shape)}")
         axes = tuple(range(x32.dim() - 1))
         mean = x32.mean(axes)
-        var = (x32 * x32).mean(axes) - mean.square()
+        mean_sq = (x32 * x32).mean(axes)
+        if sync:
+            mean, mean_sq = self._synced(mean, mean_sq)
+        var = mean_sq - mean.square()
         if self.update_stats:
             m = self.momentum
             with torch.no_grad():
@@ -325,13 +356,16 @@ class MLPEmbed(nn.Module):
 
 def _keep_mask(x: torch.Tensor, shape, rate: float,
                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """0/1 keep draws with probability 1 - rate, in x's dtype."""
+    """0/1 keep draws with probability 1 - rate, in x's dtype; in a
+    sharded pass this rank's rows of the global batch's draws."""
     if generator is None:
         raise ValueError(f"dropout at rate {rate} in train mode draws from "
                          f"an explicit generator and none was passed; put "
                          f"the module in eval mode to turn it off")
-    keep = torch.empty(shape, device=x.device)
-    return keep.bernoulli_(1.0 - rate, generator=generator).to(x.dtype)
+    keep = torch.empty((mesh.draw_rows(shape[0]),) + tuple(shape[1:]),
+                       device=x.device)
+    keep = keep.bernoulli_(1.0 - rate, generator=generator)
+    return mesh.own_rows(keep, shape[0]).to(x.dtype)
 
 
 class DropPath(nn.Module):
@@ -384,18 +418,33 @@ class Dropout2d(nn.Module):
 
 
 @contextlib.contextmanager
-def _frozen_bn_stats(module: nn.Module):
-    """Within the block, the BatchNorm layers of ``module`` leave their
-    running statistics as they are."""
-    bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+def _recording(bns, records: dict):
+    """Within the block, the BatchNorm layers ``bns`` record the
+    statistics they reduce over the ranks into ``records``."""
+    for m in bns:
+        m.sync_record = records.setdefault(m, [])
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync_record = None
+
+
+@contextlib.contextmanager
+def _replaying(bns, records: dict):
+    """Within the block, the BatchNorm layers ``bns`` leave their running
+    statistics as they are and take the statistics ``records`` holds
+    instead of reducing them over the ranks again."""
     saved = [m.update_stats for m in bns]
     for m in bns:
         m.update_stats = False
+        m.sync_replay = list(records.get(m, ()))
     try:
         yield
     finally:
         for m, flag in zip(bns, saved):
             m.update_stats = flag
+            m.sync_replay = None
 
 
 def remat_call(module: nn.Module, *args):
@@ -406,16 +455,21 @@ def remat_call(module: nn.Module, *args):
     uses the same tensors and their gradients reach the caller.  The
     recompute leaves BatchNorm running statistics alone: train-mode BN
     updates them in its forward, and a second update would count the
-    batch twice."""
+    batch twice.  The recompute runs in the sharded pass of the call
+    (``parallel/mesh.py``), and sync-BN's recompute replays the statistics
+    its forward reduced over the ranks: no second collective."""
     names, values = zip(*module.named_parameters())
     n = len(args)
+    bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+    records: dict = {}
+    block = mesh.pass_block()
     calls = []
 
     def run(*a):
-        frozen = (_frozen_bn_stats(module) if calls
-                  else contextlib.nullcontext())
+        ctx = (_replaying(bns, records) if calls
+               else _recording(bns, records))
         calls.append(None)
-        with frozen:
+        with ctx, mesh.resume_pass(block):
             return functional_call(module, dict(zip(names, a[n:])), a[:n])
 
     return checkpoint(run, *args, *values, use_reentrant=False)

@@ -11,6 +11,11 @@ compute dtype) and a copy of the head cast to the same dtype; the JAX
 task evaluates in fp32.  With ``trainer.precision: 32`` both are fp32.
 The JAX task's TPU memory options (``remat_head`` and its policy,
 ``remat_skip_last``, ``fold_passes``) have no counterpart and are ignored.
+
+Data parallel (``parallel/mesh.py``): the fit checks that the world size
+divides the batch, every rank builds the global batch and its draws and
+keeps its rows; validation takes the batches ``k`` with ``k % world ==
+rank`` on each rank and sums the SparseEPE accumulators over the ranks.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from ..config import (OptimizerSpec, SchedulerSpec, build_backbone,
                       build_head, parse_metrics, precision_dtype)
 from ..data.loader import DevicePrefetcher, InfiniteLoader, cuda_put
 from ..entry import _resolve_device
+from ..parallel import mesh
 from ..parallel.mesh import cast_floating
 from ..train.loop import FitBookkeeper
 from ..train.optim import make_adam_optimizer, multistep_lr
@@ -125,6 +131,7 @@ class AlignTask:
             weight_decay=self.opt.weight_decay, betas=self.opt.betas)
         state = atr.init_align_state(backbone, head, opt, sched,
                                      self.align_cfg.dtype)
+        mesh.replicate([backbone, head])
         return atr.AlignTrainer(self.align_cfg, state)
 
     def restore(self, path: str, seed: int = 0) -> atr.AlignTrainer:
@@ -150,8 +157,10 @@ class AlignTask:
             ckpt.load_train_state(trainer, ckpt.restore_checkpoint(resume),
                                   {"draws": draw_gen})
         # the JAX task sizes its device mesh on the first batch of every
-        # loader; the port draws it too, so its steps see the same batches
-        _host_batch_from([next(i) for i in iters])
+        # loader; the port draws it too, so its steps see the same batches,
+        # and raises where the world size does not divide it
+        probe = _host_batch_from([next(i) for i in iters])
+        mesh.check_world_divides(mesh.batch_rows(probe).values())
 
         bk = FitBookkeeper(
             workdir, self.trainer_cfg,
@@ -214,7 +223,9 @@ class AlignTask:
                             f"dataset '{name}' (supported: SparseEPE)")
                 metric = SparseEPE(uncertainty_estimation=any(
                     a.get("uncertainty_estimation") for _, a in specs))
-                for batch in loader:
+                for k, batch in enumerate(loader):
+                    if k % mesh.world_size() != mesh.rank():
+                        continue
                     with torch.inference_mode():
                         flow, uncert = align_forward(
                             net, batch["image"].to(self.device),
@@ -223,6 +234,7 @@ class AlignTask:
                     metric.update(flow.float().cpu().numpy(),
                                   batch["corr_pts_ref"], batch["corr_pts"],
                                   (h, w), uncert.float().cpu().numpy())
+                metric.reduce()
                 for k, v in metric.compute().items():
                     results[f"{stage}_{name}_{k}"] = float(v)
         finally:

@@ -11,6 +11,15 @@ whole or slide inference, per-dataset IoU and prediction PNGs on one card.
 Evaluation runs the student's fp32 masters in eval mode, as the JAX task
 evaluates ``state.params``; confusion matrices accumulate on the card in
 int64, one per distinct ``ignore_index``.
+
+Data parallel (one process per card, ``parallel/mesh.py``): the fit checks
+that the world size divides every batch axis of its probe batch (the
+halved source of ``ignore_every_second_semantic_training_batch``
+included), every rank builds the global batch and its draws and keeps
+its rows; evaluation spreads each forward's row stack over the ranks
+(``compute_mesh``) and reassembles the logits on every rank, so every
+rank counts every image into identical confusion matrices; rank 0 writes
+the prediction PNGs.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from ..entry import _resolve_device
 from ..metrics import iou_compute, iou_init, iou_update
 from ..models.segmentor import Segmentor, slide_inference
 from ..ops.resize import interpolate
+from ..parallel import mesh
 from ..parallel.mesh import cast_floating
 from ..train.loop import FitBookkeeper
 from ..train.optim import make_uda_optimizer, warmup_poly_lr
@@ -181,6 +191,8 @@ class SegTask:
             cast_floating(align_net, self.uda_cfg.dtype)
             align_net = align_net.to(self.device).eval().requires_grad_(
                 False)
+        mesh.replicate([state.student, state.teacher, state.imnet,
+                        align_net])
         return UDATrainer(self.uda_cfg, state, align_net,
                           torch.Generator(device=self.device))
 
@@ -239,7 +251,10 @@ class SegTask:
 
     def evaluate(self, stage: str, trainer: Optional[UDATrainer] = None
                  ) -> Dict[str, float]:
-        """Per-dataset IoU of the student on ``stage``."""
+        """Per-dataset IoU of the student on ``stage``.  Under a process
+        group every rank takes every batch and runs its share of each
+        forward's rows; the reassembled predictions, and so the confusion
+        matrices, are the same on every rank."""
         if stage not in self.datamodule.datasets:
             self.datamodule.setup("validate" if stage == "val" else stage)
         if trainer is None:
@@ -273,7 +288,7 @@ class SegTask:
                 for batch in loader:
                     x = batch["image"].to(self.device)
                     y = batch["semantic"].to(self.device)
-                    with torch.inference_mode():
+                    with torch.inference_mode(), mesh.compute_mesh():
                         preds = self.forward(model, x,
                                              tuple(y.shape[1:3])).argmax(-1)
                         for ig in ign_list:
@@ -310,14 +325,23 @@ class SegTask:
 
         trainer = self.init_state(seed)
         # the step's host draws (DACS, HRDA crops, the dropout seed);
-        # jax.random has no counterpart, so they differ from the JAX task's
+        # jax.random has no counterpart, so they differ from the JAX task's.
+        # Every rank draws the same, for the global batch
         draw_gen = torch.Generator().manual_seed(seed)
         if resume:
             ckpt.load_train_state(trainer, ckpt.restore_checkpoint(resume),
                                   {"draws": draw_gen})
         # the JAX task sizes its device mesh on the first batch of every
-        # loader; the port draws it too, so its steps see the same batches
-        dm.merge_train_batch([next(it) for it in iters], drop_half=False)
+        # loader (the gcd of its axes and the device count); the port
+        # draws it too, so its steps see the same batches, and raises
+        # where the world size does not divide an axis
+        probe = dm.merge_train_batch([next(it) for it in iters],
+                                     drop_half=False)
+        dims = list(mesh.batch_rows(probe).values())
+        if (dm.ignore_every_second_semantic_training_batch
+                and "image_src" in probe):
+            dims.append(max(len(probe["image_src"]) // 2, 1))
+        mesh.check_world_divides(dims)
 
         # the adapt-to-reference coin (reference segmentation_model.py:195)
         coin_rng = np.random.RandomState(seed ^ 0x5EED)
@@ -362,7 +386,9 @@ class SegTask:
     def predict(self, workdir: str, trainer: Optional[UDATrainer] = None
                 ) -> None:
         """argmax -> trainId PNG + palette-colorized PNG
-        (reference segmentation_model.py:283-302)."""
+        (reference segmentation_model.py:283-302).  Under a process group
+        every rank runs its share of each forward's rows and rank 0 writes
+        the PNGs."""
         from PIL import Image
         self.datamodule.setup("predict")
         if trainer is None:
@@ -382,8 +408,10 @@ class SegTask:
                 out_size = tuple(ds.orig_dims)
                 for batch in loader:
                     x = batch["image"].to(self.device)
-                    with torch.inference_mode():
+                    with torch.inference_mode(), mesh.compute_mesh():
                         preds = self.forward(model, x, out_size).argmax(-1)
+                    if not mesh.is_main():
+                        continue
                     preds = preds.to(torch.uint8).cpu().numpy()
                     for pred, fn in zip(preds, batch["filename"]):
                         Image.fromarray(pred).save(os.path.join(save_dir, fn))

@@ -11,6 +11,12 @@ Beside ``metrics.jsonl`` (the JAX package's lines, key for key) the loop
 writes ``timing.jsonl``: for each logged step the seconds it waited for
 its batch and its wall time through the logged losses (logging reads the
 losses, which waits for the card).
+
+Under a process group every rank runs the cadence (the logs, validation
+and the per-rank loader waits are collectives), and rank 0 alone writes
+``metrics.jsonl``, ``timing.jsonl`` (with every rank's loader wait),
+``tb/`` and the checkpoints; the others wait for each checkpoint at a
+one-element barrier.
 """
 from __future__ import annotations
 
@@ -18,6 +24,10 @@ import json
 import os
 import time
 from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..parallel import mesh
 
 
 class FitBookkeeper:
@@ -55,16 +65,26 @@ class FitBookkeeper:
         self._sched_fn = sched_fn
         self._evaluate = evaluate
         self._save = save
-        self._logf = open(os.path.join(workdir, "metrics.jsonl"), "a")
-        self._timef = open(os.path.join(workdir, "timing.jsonl"), "a")
-        from ..utils.tb_logger import TensorBoardLogger
-        self._tb = TensorBoardLogger(os.path.join(workdir, "tb"))
+        self._main = mesh.is_main()
+        self._logf = self._timef = self._tb = None
+        if self._main:
+            self._logf = open(os.path.join(workdir, "metrics.jsonl"), "a")
+            self._timef = open(os.path.join(workdir, "timing.jsonl"), "a")
+            from ..utils.tb_logger import TensorBoardLogger
+            self._tb = TensorBoardLogger(os.path.join(workdir, "tb"))
         self._t0 = time.time()
         self._saved_step: Optional[int] = None
 
     def _write(self, f, row) -> None:
-        f.write(json.dumps(row) + "\n")
-        f.flush()
+        if f is not None:
+            f.write(json.dumps(row) + "\n")
+            f.flush()
+
+    def _checkpoint(self, step: int) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self._main:
+            self._save(step)
+        mesh.barrier()
 
     def on_step(self, step: int, start_step: int, logs,
                 t_start: Optional[float] = None,
@@ -79,26 +99,35 @@ class FitBookkeeper:
                         sps=(step + 1 - start_step)
                         / max(time.time() - self._t0, 1e-9))
             if t_start is not None:
-                self._write(self._timef, {
-                    "step": step + 1, "data_wait_s": data_wait_s,
-                    "step_s": time.perf_counter() - t_start})
-            print(f"[fit] {json.dumps(logs)}", flush=True)
-            self._write(self._logf, logs)
-            self._tb.log_scalars(logs, step + 1)
+                row = {"step": step + 1, "data_wait_s": data_wait_s,
+                       "step_s": time.perf_counter() - t_start}
+                if mesh.world_size() > 1:
+                    waits = mesh.gather_rows(torch.tensor(
+                        [data_wait_s], dtype=torch.float64,
+                        device=mesh.process_device()),
+                        mesh.world_size(), mesh.rank())
+                    row["data_wait_s_ranks"] = waits.cpu().tolist()
+                self._write(self._timef, row)
+            if self._main:
+                print(f"[fit] {json.dumps(logs)}", flush=True)
+                self._write(self._logf, logs)
+                self._tb.log_scalars(logs, step + 1)
         if (step + 1) % self.val_every == 0 or step + 1 == self.max_steps:
             metrics = self._evaluate()
-            print(f"[val] step {step + 1}: {metrics}", flush=True)
-            self._write(self._logf, {"step": step + 1, **metrics})
-            self._tb.log_scalars(metrics, step + 1)
-            self._save(step + 1)
+            if self._main:
+                print(f"[val] step {step + 1}: {metrics}", flush=True)
+                self._write(self._logf, {"step": step + 1, **metrics})
+                self._tb.log_scalars(metrics, step + 1)
+            self._checkpoint(step + 1)
             self._saved_step = step + 1
 
     def finish(self) -> Dict[str, float]:
         """The final checkpoint (unless the last step's validation just
         wrote the same state)."""
         if self._saved_step != self.max_steps:
-            self._save(self.max_steps)
-        self._logf.close()
-        self._timef.close()
-        self._tb.close()
+            self._checkpoint(self.max_steps)
+        if self._main:
+            self._logf.close()
+            self._timef.close()
+            self._tb.close()
         return {"final_step": self.max_steps}

@@ -9,8 +9,11 @@ and the JAX package the same numbers, which their generators cannot give.
 Semantics kept from the JAX package:
 
 * the ClassMix candidate set is the classes present in the WHOLE source
-  batch (the reference's batch-level ``unique``); each image selects the
-  ceil(n/2) present classes with the highest of its uniform scores;
+  batch (the reference's batch-level ``unique``; a maximum over the ranks
+  under a process group); each image selects the ceil(n/2) present
+  classes with the highest of its uniform scores;
+* the pseudo-label weight is the share of confident pixels in the whole
+  target batch (a mean over the ranks under a process group);
 * colour jitter with kornia 0.5.8 semantics (additive brightness, pure
   contrast scaling, HSV-S saturation scaling, hue as a fraction of the
   circle), the four ops in a per-image random order, applied to the
@@ -33,6 +36,8 @@ from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 __all__ = ["DACSDraws", "JitterFactors", "draw_dacs", "draw_jitter",
            "draw_jitter_bcsh", "color_jitter_bcsh",
@@ -80,6 +85,14 @@ class DACSDraws:
     jitter: List[JitterFactors]       # per image
     sigma: List[float]                # per image blur sigma
 
+    def rows(self, sl: Optional[slice]) -> "DACSDraws":
+        """The draws of the images ``sl`` of the batch (all for None)."""
+        if sl is None:
+            return self
+        return dataclasses.replace(self, class_scores=self.class_scores[sl],
+                                   jitter=self.jitter[sl],
+                                   sigma=self.sigma[sl])
+
 
 def _uniform(generator: torch.Generator, lo: float, hi: float) -> float:
     return lo + (hi - lo) * float(torch.rand((), generator=generator))
@@ -116,12 +129,14 @@ def get_class_masks(scores: torch.Tensor, labels: torch.Tensor,
     """Per-image ClassMix masks (B, H, W) float 0/1 from the source labels
     (B, H, W) and per-image class scores (B, num_classes + 1), the last
     slot for the ignore label: image b selects the ceil(n/2) classes
-    present in the batch with the highest scores."""
+    present in the batch (over every rank's labels) with the highest
+    scores."""
     B = labels.shape[0]
     C1 = num_classes + 1
     lab = torch.where(labels == ignore_index, num_classes, labels).long()
     present = torch.zeros(C1, dtype=torch.bool, device=labels.device)
     present[lab.reshape(-1)] = True
+    present = mesh.all_reduce_max(present)
     n = present.sum()
     k = (n + n % 2) // 2
     s = torch.where(present, scores.to(labels.device, torch.float32),
@@ -318,7 +333,8 @@ def dacs_mix(draws: DACSDraws, images_trg: torch.Tensor,
     images_src, gt_src = images_src[:B], gt_src[:B]
     pseudo_prob = probs_trg.amax(dim=-1)
     pseudo_label = probs_trg.argmax(dim=-1).to(gt_src.dtype)
-    frac_confident = (pseudo_prob >= pseudo_label_threshold).float().mean()
+    frac_confident = mesh.mean_over_ranks(
+        (pseudo_prob >= pseudo_label_threshold).float().mean())
     pseudo_weight = torch.ones(pseudo_prob.shape, device=probs_trg.device) \
         * frac_confident
     if psweight_ignore_top > 0:

@@ -9,6 +9,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 # the large static Cityscapes classes kept in M; the other channels are
 # zeroed
 STATIC_LARGE_CLASSES = (0, 1, 2, 3, 4, 8, 9, 10)
@@ -76,13 +78,15 @@ def downscale_label_ratio(gt: torch.Tensor, scale_factor: int,
 def masked_feat_dist(f1: torch.Tensor, f2: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean L2 norm of the feature difference over masked positions;
-    f1, f2 (B,h,w,C), mask (B,h,w) bool."""
+    f1, f2 (B,h,w,C), mask (B,h,w) bool.  Under a process group the mask
+    count is the global one and the result this rank's share of the
+    global mean (``parallel/mesh.py:masked_mean``)."""
     ss = (f1 - f2).float().square().sum(-1)
     d = ss.clamp_min(1e-24).sqrt()
     if mask is None:
         return d.mean()
     m = mask.float()
-    return (d * m).sum() / m.sum().clamp_min(1.0)
+    return mesh.masked_mean((d * m).sum(), m.sum())
 
 
 def fdist_loss(feat: torch.Tensor, feat_imnet: torch.Tensor,

@@ -25,6 +25,17 @@ stay fp32.  Every random draw of a step is made on the host first
 crop offsets and a seed for the device generator of dropout and drop path),
 so a test can pin any of them.
 
+Data parallel (one process per card, ``parallel/mesh.py``): every rank
+draws the global batch's draws from the same generator state and hands
+the step the global batch, of which the step keeps this rank's rows.
+Each pass over sharded rows runs in a ``sharded_pass`` (sync-
+BN, the global batch's dropout masks); the statistics the losses take
+over the whole batch (the confident share, the classes present, the
+feature distance's mask count) and the logs are reduced over the ranks,
+and the gradients are averaged, so the step is the single process's step
+on the global batch.  An array the world size does not divide is held
+whole by every rank.
+
 Order matters in the align step and is easy to get wrong with a
 plausible-looking result: the reference image goes first into the backbone
 batch, the adverse target is the head's target, and the reference logits
@@ -45,6 +56,7 @@ from ..models.segmentor import Segmentor
 from ..nn.layers import Dropout2d, DropPath, TorchBatchNorm
 from ..ops.resize import interpolate
 from ..ops.warp import confidence_from_logvar, warp
+from ..parallel import mesh
 from ..parallel.mesh import apply_cast, cast_params
 from ..train.optim import WarmupPolyLR
 from .dacs import DACSDraws, dacs_mix, draw_dacs
@@ -170,7 +182,9 @@ def hrda_crop_offset(generator: torch.Generator, H: int, W: int,
 
 def draw_step(cfg: UDAConfig, batch: Dict[str, torch.Tensor],
               generator: torch.Generator) -> StepDraws:
-    """All host draws of one step, from a CPU generator."""
+    """All host draws of one step, from a CPU generator.  ``batch`` is the
+    global batch: under a process group every rank draws for all of its
+    rows, and the step keeps its own."""
     B = batch["image_trg"].shape[0]
     H, W = batch["image_src"].shape[1:3]
     coin = bool(cfg.adapt_to_ref
@@ -281,30 +295,59 @@ def _seg_loss(cfg: UDAConfig, logits, hr_logits, labels, weight,
             * pixel_weighted_cross_entropy(hr_logits, labels[sl], w_crop))
 
 
+def _mix_sources(batch: Dict[str, torch.Tensor], rows: Dict[str, int],
+                 trg_rows: Optional[slice]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The source images and labels DACS pairs with this rank's targets:
+    its rows of the global batch's ``[:B]`` source rows, B the global
+    target count (``rows``: the global batch's row counts)."""
+    src, gt = batch["image_src"], batch["semantic_src"]
+    n_src, n_trg = rows["image_src"], rows["image_trg"]
+    src_rows = mesh.shard_of(n_src)
+    if src_rows == trg_rows:
+        return src, gt
+    if src_rows is not None:
+        # the rows this rank needs lie on other ranks: reassemble
+        src = mesh.gather_rows(src, n_src, src_rows.start)
+        gt = mesh.gather_rows(gt, n_src, src_rows.start)
+    keep = slice(0, n_trg) if trg_rows is None else trg_rows
+    return src[:n_trg][keep], gt[:n_trg][keep]
+
+
 def forward_backward(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
                      draws: StepDraws) -> Dict[str, torch.Tensor]:
     """A step without its update: the EMA, the pseudo-labels, DACS, both
     student passes and the backward, which leaves the gradient of the
-    summed loss in the student's ``.grad``.  Returns the logs as 0-d fp32
-    tensors on the device (no host synchronisation)."""
+    summed loss in the student's ``.grad`` (averaged over the ranks under
+    a process group).  Returns the logs as 0-d fp32 tensors on the device
+    (no host synchronisation).
+
+    ``batch`` and ``draws`` are the global batch's; under a process group
+    the step keeps this rank's rows of both (``parallel/mesh.py:
+    shard_batch``)."""
     cfg, state = trainer.cfg, trainer.state
-    batch = device_normalize(cfg, batch)
+    rows = mesh.batch_rows(batch)
+    batch = device_normalize(cfg, mesh.shard_batch(batch))
+    trg_rows = mesh.shard_of(rows["image_trg"])
+    src_rows = mesh.shard_of(rows["image_src"])
+    dacs = draws.dacs.rows(trg_rows)
 
     # prefix: EMA, pseudo-labels, DACS
     with torch.no_grad():
         ema_update(state.teacher, state.student, state.step,
                    cfg.ema_momentum)
-        probs_trg, images_trg = _pseudo_probs(trainer, batch,
-                                              draws.use_ref_as_target)
+        with mesh.sharded_pass(trg_rows):
+            probs_trg, images_trg = _pseudo_probs(trainer, batch,
+                                                  draws.use_ref_as_target)
+        mix_src, mix_gt = _mix_sources(batch, rows, trg_rows)
         mixed_img, mixed_lbl, mixed_weight = dacs_mix(
-            draws.dacs, images_trg, probs_trg, batch["image_src"],
-            batch["semantic_src"],
+            dacs, images_trg, probs_trg, mix_src, mix_gt,
             pseudo_label_threshold=cfg.pseudo_label_threshold,
             color_jitter_p=cfg.color_jitter_p, blur=cfg.blur,
             psweight_ignore_top=cfg.psweight_ignore_top,
             psweight_ignore_bottom=cfg.psweight_ignore_bottom,
             num_classes=cfg.num_classes)
-        del probs_trg
+        del probs_trg, mix_src, mix_gt
 
     # core: both student passes, fdist, one backward of the sum
     trainer.dropout_gen.manual_seed(draws.dropout_seed)
@@ -312,8 +355,9 @@ def forward_backward(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
               else cast_params(state.student, cfg.dtype))
     gt_src = batch["semantic_src"]
     logs = {}
-    logits_src, hr_src, feats_src = _student_forward(
-        trainer, params, batch["image_src"], draws.crop_src)
+    with mesh.sharded_pass(src_rows):
+        logits_src, hr_src, feats_src = _student_forward(
+            trainer, params, batch["image_src"], draws.crop_src)
     loss_src = _seg_loss(cfg, logits_src, hr_src, gt_src, None,
                          draws.crop_src)
     logs["train_loss_src"] = loss_src
@@ -335,8 +379,9 @@ def forward_backward(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
         del imnet_feats
     del feats_src
 
-    logits_mix, hr_mix, _ = _student_forward(trainer, params, mixed_img,
-                                             draws.crop_mix)
+    with mesh.sharded_pass(trg_rows):
+        logits_mix, hr_mix, _ = _student_forward(trainer, params, mixed_img,
+                                                 draws.crop_mix)
     loss_mix = _seg_loss(cfg, logits_mix, hr_mix, mixed_lbl, mixed_weight,
                          draws.crop_mix)
     logs["train_loss_uda_trg"] = loss_mix
@@ -346,14 +391,25 @@ def forward_backward(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
 
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
+    mesh.reduce_gradients(state.student.parameters())
     logs["train_loss_total"] = total
-    return {k: v.detach().float() for k, v in logs.items()}
+    return _global_logs(logs)
+
+
+def _global_logs(logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The logs as 0-d fp32 tensors, each the mean of the ranks' values
+    (one collective; the values themselves without a group)."""
+    keys = list(logs)
+    packed = mesh.mean_over_ranks(
+        torch.stack([logs[k].detach().float() for k in keys]))
+    return dict(zip(keys, packed.unbind()))
 
 
 def train_step(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
                draws: StepDraws) -> Dict[str, torch.Tensor]:
     """One UDA step in place on ``trainer.state``: :func:`forward_backward`,
-    then AdamW at the schedule's rate for the update count."""
+    then AdamW at the schedule's rate for the update count (the same
+    update on every rank: the gradients are averaged first)."""
     logs = forward_backward(trainer, batch, draws)
     state = trainer.state
     state.scheduler.set_step(state.step)

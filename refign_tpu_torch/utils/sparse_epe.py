@@ -7,13 +7,17 @@ correspondence points, per-sample AEPE averaged over samples, PCK counts
 normalized by total valid correspondences, and the AUSE sparsification AUC
 for the uncertainty estimate.  Ragged per-sample correspondences make this a
 natural host computation (no static shapes needed); distributed reduction is
-a plain sum of the accumulator dict.
+a plain sum of the accumulator dict (:meth:`SparseEPE.reduce`: one
+``all_reduce`` of the accumulators packed in one float64 tensor).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from ..parallel import mesh
 
 
 class SparseEPE:
@@ -67,6 +71,28 @@ class SparseEPE:
                         "uncertainty_est in update()")
                 uncert = uncertainty_est[bb, iy, ix, 0]
                 self.AUSE_AEPE += self._ause(flow_gt, flow_est, uncert)
+
+    def _packed(self) -> List[float]:
+        return ([self.AEPE] + [self.PCK[t] for t in sorted(self.PCK)]
+                + [self.nbr_valid_corr, self.nbr_samples, self.AUSE_AEPE])
+
+    def reduce(self) -> None:
+        """Sum the accumulators over the ranks, in place (one collective
+        of a float64 tensor on this process's device; the counts stay
+        exact); nothing without a process group."""
+        if not torch.distributed.is_initialized():
+            return
+        t = mesh.all_reduce_sum(torch.tensor(
+            self._packed(), dtype=torch.float64,
+            device=mesh.process_device()))
+        vals = t.cpu().tolist()
+        self.AEPE = vals[0]
+        for i, k in enumerate(sorted(self.PCK)):
+            self.PCK[k] = vals[1 + i]
+        n = 1 + len(self.PCK)
+        self.nbr_valid_corr = int(vals[n])
+        self.nbr_samples = int(vals[n + 1])
+        self.AUSE_AEPE = vals[n + 2]
 
     @staticmethod
     def _ause(gt, pred, uncert, intervals: int = 50) -> float:

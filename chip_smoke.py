@@ -23,13 +23,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ragged ones (the kernel, plain and library backwards timed by
    their device time, as the host work of the wrapper and of autograd
    outlasts their kernels); and, for the lab-only Pallas functions of
-   tools/, their bounds and library calls at their own shapes;
+   tools/, their bounds and library calls at their own shapes; K3 and its
+   backward (gs alone) also at the folded UAWarpC step's 18-row levels;
+   and the native host correlation (``refign_tpu_torch/native``, built
+   with g++) against K3's plain version and K3 at a small shape;
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
    for shape and finiteness, K1 and K2 must launch 52 times per forward,
    and the forward must agree with the same model run through the plain
-   versions; a small fp32 model checks the kernels' path tightly;
+   versions; a small fp32 model checks the kernels' path tightly; a
+   ``utils/profiling.StepTracer`` window over two warm forwards must write
+   a trace holding K1's kernel;
 5. align path: Refign's align and refine (VGG-16 + UAWarpC, seeded random
    bf16 weights) on B=4 1024x1024 target/reference images and 19-class
    logits through ``build_alignment`` and ``refign_align_refine``: K3 must
@@ -47,7 +52,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    with the plain versions' (and tightly on a small fp32 model); one step
    must launch K1 and K2 312 times forward and 104 times backward and K3 3
    times; then 1 warm-up and 5 timed steps with finite losses, the peak
-   memory and a profile;
+   memory and a profile; then the MiT blocks' recompute under
+   ``remat_policy='dots'`` (products and convolutions kept, K1 and K2
+   recomputed) against the whole-block recompute from one state with the
+   same draws at the limits above, its launch counts (the same), step time
+   and peak memory;
 6b. UAWarpC train step, stage 1: VGG-16 + UAWarpC (seeded random
    weights, bf16 on fp32 masters, remat_modules, Adam at lr 1e-4 and wd
    4e-4) on B=6 seeded synthetic uint8 pairs of 750^2, the prime view
@@ -57,7 +66,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against the plain versions' (tightly on a reduced fp32 step, for the
    wiring at full size in bf16); one step must launch K3 and its backward
    9 times each (3 levels x 3 head passes); 1 warm-up and 5 timed steps
-   with finite losses, the peak memory and a profile; then one stage-2
+   with finite losses, the peak memory and a profile; then, from that
+   state with one set of draws, the step's memory options against the
+   serial step: ``fold_passes`` (one head pass of 18 rows, BatchNorm in 3
+   groups; K3 and its backward 3 times a step) at the limits above on
+   losses, head gradients and BN running statistics, and the folded step
+   through the kernels against it through the plain versions;
+   ``remat_head`` whole, with the 'dots' policy and with ``remat_skip_last``
+   within 10x the most the serial step differs by from three repeats
+   (bit-equal where they repeat); each variant's launches of every
+   kernel, the device time of its compared forward and backward, its warm
+   step time and peak memory beside the serial step's; then one stage-2
    step (elastic flow, visibility mask) with finite losses and the same
    launch counts;
 6c. Refign-DeepLabV2 (``refign_deeplabv2.yaml``: ResNet-101 v1c at output
@@ -125,8 +144,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    step, beside SDPA's and cuDNN's forward + backward and the sums of
    their first designs; K3's backward over the 9 launches of a stage-1
    UAWarpC step, both gradients and gs alone, beside its first design;
-   K3 over a Refign-DeepLabV2 step), the ``kernels`` JSON line, the card
-   line and, last, the result line.
+   K3 over a Refign-DeepLabV2 step), the host-clock seconds of each phase
+   and of the parts timed on their own, the ``kernels`` JSON line (the
+   launches on each path as this run counted them), the card line and,
+   last, the result line.
 
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
@@ -223,6 +244,26 @@ ALIGN_TRAIN_LAUNCHES = {
     "local_correlation_backward": ALIGN_TRAIN_PASSES * len(ALIGN_TRAIN_LEVELS),
 }
 
+# the step's memory options (refign_tpu_torch/alignment/trainer.py):
+# fold_passes runs the three head passes as one of 3B = 18 rows, so K3 and
+# its backward launch once a level; remat_head recomputes each pass in
+# the backward, K3 with it (every pass, or two with remat_skip_last), its
+# backward as often as before.  Each: its AlignConfig options and (K3, K3
+# backward) launches a step
+ALIGN_FOLD_LEVELS = [(3 * b, h, w, c) for b, h, w, c in ALIGN_TRAIN_LEVELS]
+ALIGN_VARIANTS = {
+    "fold_passes": (dict(fold_passes=True), (3, 3)),
+    "remat_head": (dict(remat_head=True), (18, 9)),
+    "remat_head dots": (dict(remat_head=True, remat_head_policy="dots"),
+                        (18, 9)),
+    "remat_head skip_last": (dict(remat_head=True, remat_skip_last=True),
+                             (15, 9)),
+}
+# warm steps timed for each variant (its comparison run warms it)
+ALIGN_VARIANT_STEPS = 3
+# repeats of the serial run beside them (the remat_head variants' limits)
+ALIGN_SERIAL_REPEATS = 3
+
 # per-step sums (ms) of the first designs of the backward kernels, read by
 # this script on an NVIDIA H100 80GB HBM3 at 700 W; phase 7 prints them
 # beside this run's.  K1 (fp32 CUDA cores, softmax recomputed in three
@@ -300,6 +341,11 @@ ALIGN_BF16_LOSS_REL = 2e-4
 ALIGN_BF16_TOTAL_REL = 4e-2
 ALIGN_BF16_MEDIAN_REL = 6e-2
 ALIGN_BF16_GRAD_REL = 0.8
+# the head's BatchNorm running statistics after the step's three passes
+# (relative L2 over all of them), the folded step against the serial one
+# and against its plain versions: about 10x the reading on an H100
+# (3.51e-6 and 1.49e-6)
+ALIGN_BF16_STAT_REL = 4e-5
 # backward kernels against autograd of the plain versions on the same
 # inputs: fp32 sums over up to 131k terms (dw at stage 1) in another
 # order, so within GRAD_REL of the largest |ref| of each gradient (the
@@ -346,6 +392,27 @@ def log(*a):
     print(*a, flush=True)
 
 
+# time_ms: calls longer than this (ms) are timed alone, over fewer samples
+LONG_CALL_MS, LONG_CALL_REPS = 5.0, 5
+
+# host-clock seconds of each phase and of each part of a phase that is
+# timed on its own (``timed``), logged as they end and summed at the end
+SECONDS = {}
+
+
+def add_seconds(what, t0):
+    SECONDS[what] = SECONDS.get(what, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def timed(what):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        add_seconds(what, t0)
+
+
 def ptxas_summary(text):
     """One line per kernel from nvcc's -Xptxas -v log: its (mangled) name,
     registers and spills."""
@@ -375,11 +442,19 @@ def time_ms(fn, reps=20, warmup=3, batch=10) -> float:
     """CUDA-event time of one call: the median over ``reps`` samples, each
     of ``batch`` back-to-back calls, so a wrapper's host time overlaps the
     previous call's device time as it does in the model (one call between
-    two events would time the host where it is the slower)."""
+    two events would time the host where it is the slower).  A call whose
+    warm-up took more than ``LONG_CALL_MS`` a call (a plain version at the
+    largest shapes, tens of ms on the card) is timed alone, over
+    ``LONG_CALL_REPS`` samples: the host is not what it waits for."""
     import torch
-    for _ in range(warmup):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
+    if (time.perf_counter() - t) * 1e3 > LONG_CALL_MS * max(warmup - 1, 1):
+        reps, batch = min(reps, LONG_CALL_REPS), 1
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -564,6 +639,10 @@ def phase_kernels():
                "align-train", bf16, bf16) for lvl in ALIGN_TRAIN_LEVELS]
     cases += [("local_correlation", 0, (*lvl, CORR_PATCH), "raw-train", bf16,
                None) for lvl in ALIGN_TRAIN_LEVELS]
+    # and at the folded step's levels (fold_passes: one pass of 18 rows),
+    # one launch a step each
+    cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "align-fold",
+               bf16, bf16) for lvl in ALIGN_FOLD_LEVELS]
     # and at the DeepLabV2 UDA step's levels, one launch a step each
     cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "deeplabv2", bf16,
                bf16) for lvl in DL_CORR_LEVELS]
@@ -577,6 +656,7 @@ def phase_kernels():
                torch.float32)]
 
     for name, n_launch, shape, kind, dtype, corr_out in cases:
+        t_row = time.perf_counter()
         if name == "sra_attention":
             B, N, M, H = shape
             q, k, v = attention_case(gen, B, N, M, H, dtype)
@@ -650,6 +730,7 @@ def phase_kernels():
             f"{bound:.4f} ms ({bound_by}, {100 * row['bound_share']:.1f} % "
             f"of it)  plain {row['plain_ms']:.4f} ms  library {lib}")
         del got, ref
+        add_seconds(f"3 {name} {kind}", t_row)
     return rows
 
 
@@ -672,9 +753,11 @@ def corr_grad_scale(t, s, g, P, fused):
     scale of its summation error, which pixels whose clamp makes graw ~1e12
     leave far above an element where their terms cancel; and, in the fused
     mode, the sum over the taps whose raw sum lies within fp32 summation
-    noise of 0 (1e-5 of the sum of |t||s|) of their whole term, as the
-    ReLU's slope there may differ between the kernel's recomputed sums and
-    the plain version's."""
+    noise of 0 (1e-5 of the sum of |t||s|, that sum not 0) of their whole
+    term, as the ReLU's slope there may differ between the kernel's
+    recomputed sums and the plain version's (the plain version's sum may
+    land on 0 exactly, where it takes slope 0.5, while the exact sum and
+    the kernel's lie on one side)."""
     import torch
     from refign_tpu_torch.ops.correlation import local_correlation_reference
     g = g.float()
@@ -689,7 +772,10 @@ def corr_grad_scale(t, s, g, P, fused):
         slope = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
         whole = (g.abs() + n * (g * n).sum(-1, keepdim=True).abs()) / den
         gmag = slope * whole
-        jump = torch.where((raw != 0) & (raw.abs() <= 1e-5 * absraw),
+        # a raw sum that fp32 rounding puts exactly on 0 is near the kink
+        # too (the exact sum is not 0 where some product is not): only
+        # where every product is 0 is the zero exact, both sides slope 0.5
+        jump = torch.where((absraw > 0) & (raw.abs() <= 1e-5 * absraw),
                            whole, 0.0)
         del raw, absraw, r, n, slope, whole
     ta = t.detach().float().abs().requires_grad_()
@@ -819,12 +905,16 @@ def phase_backward_kernels():
     # for gs alone (fused bf16)
     cases += [("local_correlation_backward", 0, (*lvl, CORR_PATCH), "path",
                bf16) for lvl in ALIGN_TRAIN_LEVELS]
+    # and the folded step's (fold_passes: 18 rows, one launch a level)
+    cases += [("local_correlation_backward", 1, (*lvl, CORR_PATCH),
+               "path-fold", bf16) for lvl in ALIGN_FOLD_LEVELS]
     cases += [("local_correlation_backward", 0, (2, 33, 70, 40, 5), kind,
                torch.float32) for kind in ("ragged", "ragged-raw")]
     cases += [("local_correlation_backward", 0, (1, 17, 45, 40, 9), kind,
                bf16) for kind in ("ragged", "ragged-raw")]
 
     for name, n_launch, shape, kind, dtype in cases:
+        t_row = time.perf_counter()
         expect = None  # the kernels a call launches, where they are known
         if name == "sra_attention_backward":
             B, N, M, H = shape
@@ -852,8 +942,8 @@ def phase_backward_kernels():
                                   q.element_size())
         elif name == "local_correlation_backward":
             B, H, W, C, P = shape
-            fused = kind in ("main", "ragged", "path")
-            need_t = kind != "path"
+            fused = kind in ("main", "ragged", "path", "path-fold")
+            need_t = kind not in ("path", "path-fold")
             t, s, g = corr_grad_case(gen, B, H, W, C, P, dtype, fused)
             plain_fn = (local_correlation_relu_l2norm_reference if fused
                         else local_correlation_reference)
@@ -919,11 +1009,13 @@ def phase_backward_kernels():
         # device time of all three: the plain and library backwards run
         # through autograd, and the kernels' wrapper allocates and checks in
         # Python, host work that outlasts the kernels at these shapes (the
-        # wrapper's CUDA-event time is logged beside it)
+        # wrapper's CUDA-event time is logged beside it); one reading of
+        # the kernel gives its total and its split by device kernel
+        split = device_ms_by_kernel(kernel, expect=expect)
         row = dict(name=name, shape=list(shape), kind=kind, mode="",
                    dtype=str(dtype).replace("torch.", ""),
                    launches_per_forward=n_launch, max_abs_err=err,
-                   ms=device_ms(kernel, expect=expect),
+                   ms=sum(split.values()),
                    wrapper_ms=time_ms(kernel),
                    plain_ms=device_ms(plain),
                    library_ms=None if library is None else device_ms(library),
@@ -936,7 +1028,6 @@ def phase_backward_kernels():
         rows.append(row)
         if name == "local_correlation_backward" and dtype == bf16:
             # the bf16 body's two kernels: graw (fused mode), gt and gs
-            split = device_ms_by_kernel(kernel, expect=expect)
             log(f"  {name} {kind} {shape} by kernel: " + ", ".join(
                 f"{k.split('::')[-1].split('(')[0]} {ms:.4f} ms"
                 for k, ms in sorted(split.items())))
@@ -948,7 +1039,34 @@ def phase_backward_kernels():
             f"{100 * row['bound_share']:.1f} % of it)  plain "
             f"{row['plain_ms']:.4f} ms  library {lib}{kink}")
         del got, refs, plain, library
+        add_seconds(f"3 {name} {kind}", t_row)
     return rows
+
+
+def phase_native():
+    """The native host correlation (``refign_tpu_torch/native``: C++ and
+    OpenMP, built with g++ at first use), an oracle on no path, against
+    K3's plain version and K3's raw fp32 mode on the card at a small
+    shape; fp32 sums in another order."""
+    import torch
+    from refign_tpu_torch import native
+    from refign_tpu_torch.ops.correlation import (local_correlation,
+                                                  local_correlation_reference)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    t0 = time.perf_counter()
+    native.get_lib()
+    built = time.perf_counter() - t0
+    t, s = corr_case(gen, 2, 33, 47, 64, torch.float32)
+    got = torch.from_numpy(native.correlation_forward(
+        t.cpu().numpy(), s.cpu().numpy(), CORR_PATCH)).cuda()
+    err = check_close("native correlation vs K3's plain version", got,
+                      local_correlation_reference(t, s, CORR_PATCH), 0.0,
+                      CORR_ABS)
+    err_k3 = check_close("native correlation vs K3 (raw fp32)", got,
+                         local_correlation(t, s, CORR_PATCH), 0.0, CORR_ABS)
+    log(f"  native host correlation (built and loaded in {built:.1f} s) at "
+        f"(2, 33, 47, 64), P={CORR_PATCH}: max abs err {err:.2e} against "
+        f"K3's plain version, {err_k3:.2e} against K3 (limit {CORR_ABS:g})")
 
 
 def phase_lab_yardsticks():
@@ -1096,7 +1214,51 @@ def phase_main_path(card):
         f"images/s on {card}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_device(lambda: hrda_slide_forward(model, img), sec, "forward")
+    with timed("4 StepTracer window"):
+        trace_window(lambda: hrda_slide_forward(model, img), "HRDA* forward")
     return launches, sec
+
+
+# K1's device kernel, as KERNEL_GROUPS names it
+TRACE_KERNEL = "sra_attention_kernel"
+
+
+def trace_window(fn, what):
+    """``utils/profiling.StepTracer`` over calls 1 and 2 of four calls of
+    ``fn`` (the window [1, 3)): it must write one trace file, and the file
+    must hold K1's kernel; logs the file's size, the kernel's count in it
+    and the traced calls' times beside the others."""
+    import torch
+    from refign_tpu_torch.utils.profiling import StepTracer
+    logdir = tempfile.mkdtemp(prefix="refign_trace_")
+    try:
+        tracer = StepTracer(logdir, start=1, stop=3)
+        times = []
+        for step in range(4):
+            tracer.step(step)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        if tracer.active:
+            raise AssertionError("the step tracer did not close at its stop")
+        files = [f for f in os.listdir(logdir)
+                 if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"the step tracer wrote {files}")
+        path = os.path.join(logdir, files[0])
+        with open(path) as f:
+            found = f.read().count(TRACE_KERNEL)
+        if not found:
+            raise AssertionError(f"the trace of two {what} calls holds no "
+                                 f"{TRACE_KERNEL}")
+        log(f"  StepTracer over {what} calls 1-2 of 0-3: one trace file, "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, {found} mentions of "
+            f"{TRACE_KERNEL}; calls "
+            f"{[round(x * 1e3, 1) for x in times]} ms (1 and 2 traced)")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
 
 
 def warm_median(fn, n=5):
@@ -1242,31 +1404,35 @@ def grads_kernels_vs_plain(trainer, batch, gen=None, draws=None):
     after each).  The draws are the given ones, or drawn from ``gen`` on
     the Refign branch.  Returns the two runs' logs and gradients by
     name."""
-    from refign_tpu_torch.uda.trainer import draw_step, forward_backward
-    state = trainer.state
+    from refign_tpu_torch.uda.trainer import draw_step
     if draws is None:
         draws = draw_step(trainer.cfg, batch, gen)
         draws.use_ref_as_target = False  # the Refign branch, with its align
-    saved = [{k: v.clone() for k, v in m.state_dict().items()}
-             for m in (state.student, state.teacher)]
-
-    def run():
-        logs = forward_backward(trainer, batch, draws)
-        grads = {n: p.grad.detach().clone()
-                 for n, p in state.student.named_parameters()
-                 if p.grad is not None}
-        state.optimizer.zero_grad(set_to_none=True)
-        for m, sd in zip((state.student, state.teacher), saved):
-            m.load_state_dict(sd)
-        return logs, grads
-
-    kernel = run()
+    kernel = uda_run(trainer, batch, draws)
     plain_versions(True)
     try:
-        plain = run()
+        plain = uda_run(trainer, batch, draws)
     finally:
         plain_versions(False)
     return kernel, plain
+
+
+def uda_run(trainer, batch, draws):
+    """One UDA step without its update from the trainer's state: its logs
+    and the student's gradients by name; the student and the teacher are
+    restored after it."""
+    from refign_tpu_torch.uda.trainer import forward_backward
+    state = trainer.state
+    saved = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (state.student, state.teacher)]
+    logs = forward_backward(trainer, batch, draws)
+    grads = {n: p.grad.detach().clone()
+             for n, p in state.student.named_parameters()
+             if p.grad is not None}
+    state.optimizer.zero_grad(set_to_none=True)
+    for m, sd in zip((state.student, state.teacher), saved):
+        m.load_state_dict(sd)
+    return logs, grads
 
 
 def loss_floor(trainer, batch, draws, plain=True, what="the Refign branch"):
@@ -1372,7 +1538,7 @@ def backward_repeat(trainer, batch, draws):
 
 
 def compare_step(what, kernel, plain, loss_limit, grad_limit, total_limit,
-                 median_limit, loss_noise=None):
+                 median_limit, loss_noise=None, versus="kernels vs plain"):
     """Relative differences of the three losses and the relative L2 error
     of every parameter's gradient, kernels against plain versions: the
     largest, the median and all gradients together, each against its
@@ -1404,7 +1570,7 @@ def compare_step(what, kernel, plain, loss_limit, grad_limit, total_limit,
              / sum((g_p[n] ** 2).sum() for n in g_p).sqrt()).item()
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
     median = statistics.median(rel.values())
-    log(f"  {what}: losses kernels vs plain rel "
+    log(f"  {what}: losses {versus} rel "
         + ", ".join(f"{k[len('train_loss_'):]} {v:.2e}"
                     for k, v in loss_rel.items())
         + (f" (limit {loss_limit:g})" if not loss_noise else " (limits "
@@ -1420,7 +1586,7 @@ def compare_step(what, kernel, plain, loss_limit, grad_limit, total_limit,
     if not (all(loss_rel[k] <= limits[k] for k in loss_rel)
             and max(rel.values()) <= grad_limit and total <= total_limit
             and median <= median_limit):
-        raise AssertionError(f"{what}: kernels disagree with plain versions")
+        raise AssertionError(f"{what}: {versus} disagree")
     return max(loss_rel.values()), max(rel.values()), total
 
 
@@ -1508,7 +1674,56 @@ def phase_train(card):
         for lg in losses))
     profile_device(lambda: uda_train_step(trainer, batch, gen), sec,
                    "train step", top_n=25)
+    with timed("6 remat 'dots' step against whole-block"):
+        phase_train_dots(card, trainer, batch, gen, counted, sec, peak)
     return launches, sec, peak
+
+
+def phase_train_dots(card, trainer, batch, gen, counted, remat_sec,
+                     remat_peak):
+    """The UDA step with the MiT blocks recomputed under
+    ``remat_policy='dots'`` (their products' and convolutions' outputs
+    kept, K1 and K2 run again) against the whole-block recompute of
+    ``refign_hrda_star.yaml``, from one state with the same draws on the
+    Refign branch, at phase 6's bf16 limits; its launches in a counted
+    step, warm step time and peak memory beside the whole-block one's."""
+    import torch
+    from refign_tpu_torch.entry import uda_train_step
+    from refign_tpu_torch.uda.trainer import draw_step, train_step
+    backbone = trainer.state.student.backbone
+    draws = draw_step(trainer.cfg, batch, gen)
+    draws.use_ref_as_target = False
+    remat = uda_run(trainer, batch, draws)
+    backbone.remat_policy = "dots"
+    try:
+        dots = uda_run(trainer, batch, draws)
+        compare_step(f"MiT-B5 bf16 B={UDA_B} {UDA_HW}^2, remat 'dots' vs "
+                     f"whole-block remat", dots, remat, TRAIN_BF16_LOSS_REL,
+                     TRAIN_BF16_GRAD_REL, TRAIN_BF16_TOTAL_REL,
+                     TRAIN_BF16_MEDIAN_REL, versus="'dots' vs whole-block")
+        for f in counted.values():
+            f.launches = 0
+        train_step(trainer, batch, draws)
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in counted.items()}
+        log(f"  launches in one train step under remat 'dots': {launches}")
+        for name, n in launches.items():
+            if n != TRAIN_LAUNCHES[name]:
+                raise AssertionError(f"{name} launched {n} times in a "
+                                     f"'dots' train step, expected "
+                                     f"{TRAIN_LAUNCHES[name]}")
+        # the runs above warmed the 'dots' step
+        torch.cuda.reset_peak_memory_stats()
+        sec, times = warm_median(lambda: uda_train_step(trainer, batch, gen),
+                                 n=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        backbone.remat_policy = None
+    log(f"  warm train step under remat 'dots' (B={UDA_B} {UDA_HW}^2): "
+        f"median {sec * 1e3:.1f} ms over {len(times)} "
+        f"({[round(x * 1e3, 1) for x in times]} ms), peak memory "
+        f"{peak:.2f} GiB; whole-block remat {remat_sec * 1e3:.1f} ms, peak "
+        f"{remat_peak:.2f} GiB, on {card}")
 
 
 def align_batch(B, S, seed, device):
@@ -1603,9 +1818,17 @@ def phase_align_train(card):
     from refign_tpu_torch.alignment.trainer import draw_align, train_step
     from refign_tpu_torch.entry import (UAWARPC_STAGE1, align_train_step,
                                         build_align_trainer)
+    from refign_tpu_torch.ops.attention import (sra_attention,
+                                                sra_attention_backward)
     from refign_tpu_torch.ops.correlation import (local_correlation,
                                                   local_correlation_backward)
-    counted = {"local_correlation": local_correlation,
+    from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
+                                             dwconv3x3_gelu_backward)
+    counted = {"sra_attention": sra_attention,
+               "sra_attention_backward": sra_attention_backward,
+               "dwconv3x3_gelu": dwconv3x3_gelu,
+               "dwconv3x3_gelu_backward": dwconv3x3_gelu_backward,
+               "local_correlation": local_correlation,
                "local_correlation_backward": local_correlation_backward}
 
     # a reduced fp32 step first: kernels against plain versions, tightly
@@ -1644,10 +1867,10 @@ def phase_align_train(card):
         launches = {n: f.launches for n, f in counted.items()}
         log(f"  launches in one {what} step: {launches}")
         for name, n in launches.items():
-            if n != ALIGN_TRAIN_LAUNCHES[name]:
+            if n != ALIGN_TRAIN_LAUNCHES.get(name, 0):
                 raise AssertionError(f"{name} launched {n} times in a {what} "
                                      f"step, expected "
-                                     f"{ALIGN_TRAIN_LAUNCHES[name]}")
+                                     f"{ALIGN_TRAIN_LAUNCHES.get(name, 0)}")
         return launches, logs
 
     launches, logs = counted_step(trainer, "stage-1")
@@ -1675,6 +1898,8 @@ def phase_align_train(card):
         ", ".join(f"{k} {v:.4f}" for k, v in lg.items()) for lg in losses))
     profile_device(lambda: align_train_step(trainer, batch, gen), sec,
                    "stage-1 step", top_n=25)
+    variants = phase_align_variants(card, trainer, batch, gen, counted,
+                                    (sec, peak))
     del trainer
 
     stage2 = build_align_trainer(2, device="cuda", seed=2)
@@ -1685,7 +1910,153 @@ def phase_align_train(card):
     log("  stage-2 step losses: " + ", ".join(f"{k} {v:.4f}"
                                               for k, v in logs.items()))
     del stage2
-    return launches, sec, peak
+    return launches, variants["fold_passes"], sec, peak
+
+
+def align_run(trainer, batch, draws):
+    """One UAWarpC step without its update from the trainer's state: its
+    logs, the head's gradients and the BatchNorm running statistics it
+    leaves, by name; the head is restored after it."""
+    from refign_tpu_torch.alignment.trainer import forward_backward
+    head = trainer.state.head
+    saved = {k: v.clone() for k, v in head.state_dict().items()}
+    logs = forward_backward(trainer, batch, draws)
+    grads = {n: p.grad.detach().clone() for n, p in head.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in head.named_buffers()}
+    trainer.state.optimizer.zero_grad(set_to_none=True)
+    head.load_state_dict(saved)
+    return logs, grads, stats
+
+
+def step_differences(got, want):
+    """Relative differences of two UAWarpC runs (:func:`align_run`): the
+    largest of the three losses', and the relative L2 errors of the head
+    gradients over all parameters, of the median and of the largest
+    parameter, and of the running statistics over all buffers."""
+    (logs_g, g_g, st_g), (logs_w, g_w, st_w) = got, want
+
+    def total(a, b):
+        num = sum(float(((a[n] - b[n]).double() ** 2).sum()) for n in b)
+        den = sum(float((b[n].double() ** 2).sum()) for n in b)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    per = [total({n: g_g[n]}, {n: g_w[n]}) for n in g_w]
+    return {"loss": max(abs(float(logs_g[k]) - float(logs_w[k]))
+                        / max(abs(float(logs_w[k])), 1e-12)
+                        for k in ("train_matching_loss", "loss_ss",
+                                  "loss_us")),
+            "all": total(g_g, g_w), "median": statistics.median(per),
+            "largest": max(per), "stats": total(st_g, st_w)}
+
+
+def _fmt(d):
+    return ", ".join(f"{k} {v:.2e}" for k, v in d.items())
+
+
+def phase_align_variants(card, trainer, batch, gen, counted, serial_time):
+    """The stage-1 step's memory options (``ALIGN_VARIANTS``) from the
+    trainer's state with one set of draws, against the serial step:
+    ``fold_passes`` at phase 6b's bf16 limits on the losses and head
+    gradients, and on the running statistics at ``ALIGN_BF16_STAT_REL``;
+    the folded step through the kernels against it through the plain
+    versions at the same limits; the remat_head variants within 10x what
+    the serial step differs by from its ``ALIGN_SERIAL_REPEATS`` repeats
+    (the largest of the repeats' differences, metric by metric: bit-equal
+    where the step repeats, and one repeat can agree on a gradient metric
+    by chance where the backward's atomic adds do not).  Each run is
+    counted (every kernel's launches) and its forward and backward
+    profiled on the device alone (the device time beside the serial
+    run's); then each variant's warm step time (median of
+    ``ALIGN_VARIANT_STEPS``; its comparison run warmed it) and peak
+    memory, beside the serial step's (``serial_time``: the phase's median
+    seconds and peak GiB).  Returns each variant's launches by kernel."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from refign_tpu_torch.alignment.trainer import AlignTrainer, draw_align
+    from refign_tpu_torch.entry import align_train_step
+    B, S = ALIGN_TRAIN_B, ALIGN_TRAIN_LOAD
+    draws = draw_align(trainer.cfg, B, S, S, gen)
+    pair = ("local_correlation", "local_correlation_backward")
+
+    def counted_run(tr):
+        for f in counted.values():
+            f.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = align_run(tr, batch, draws)
+            torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in counted.items()}
+        dev = device_sum_ms(prof)
+        return out, launches, (f"{dev:.1f} ms" if dev > 0 else
+                               "not measured (no device events recorded)")
+
+    with timed("6b serial run and its repeats"):
+        serial, serial_launches, serial_dev = counted_run(trainer)
+        spread = {}
+        for _ in range(ALIGN_SERIAL_REPEATS):
+            diff = step_differences(align_run(trainer, batch, draws), serial)
+            spread = {k: max(v, spread.get(k, 0.0)) for k, v in diff.items()}
+    log(f"  stage-1 step, serial, {ALIGN_SERIAL_REPEATS + 1} times from one "
+        f"state with the same draws: "
+        + ("bit-equal" if not any(spread.values()) else
+           "differ by up to " + _fmt(spread)) + f"; launches "
+        f"{serial_launches}; forward and backward {serial_dev} on the "
+        f"device")
+    runs, measured = {}, {}
+    for name, (opts, want) in ALIGN_VARIANTS.items():
+        t0 = time.perf_counter()
+        tr = AlignTrainer(dataclasses.replace(trainer.cfg, **opts),
+                          trainer.state)
+        runs[name] = tr
+        got, launches, dev = counted_run(tr)
+        measured[name] = launches
+        diff = step_differences(got, serial)
+        if (tuple(launches[k] for k in pair) != want
+                or any(launches[k] for k in launches if k not in pair)):
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"(K3, K3 backward) {want} and no other")
+        if name == "fold_passes":
+            limits = {"loss": ALIGN_BF16_LOSS_REL,
+                      "all": ALIGN_BF16_TOTAL_REL,
+                      "median": ALIGN_BF16_MEDIAN_REL,
+                      "largest": ALIGN_BF16_GRAD_REL,
+                      "stats": ALIGN_BF16_STAT_REL}
+            plain_versions(True)
+            try:
+                plain = align_run(tr, batch, draws)
+            finally:
+                plain_versions(False)
+            vs_plain = step_differences(got, plain)
+            log(f"  {name}: kernels vs plain versions {_fmt(vs_plain)} "
+                f"(limits {_fmt(limits)})")
+            if any(vs_plain[k] > limits[k] for k in limits):
+                raise AssertionError(f"{name}: kernels disagree with the "
+                                     f"plain versions")
+        else:
+            limits = {k: 10 * v for k, v in spread.items()}
+        log(f"  {name} vs serial step: {_fmt(diff)} (limits "
+            f"{_fmt(limits)}); launches (K3, K3 backward) "
+            f"{tuple(launches[k] for k in pair)}; forward and backward "
+            f"{dev} on the device (serial {serial_dev})")
+        if any(diff[k] > limits[k] for k in limits):
+            raise AssertionError(f"{name}: the step disagrees with the "
+                                 f"serial step")
+        add_seconds(f"6b {name} against serial", t0)
+    # speed and memory, each variant from the state the last one left
+    sec, peak = serial_time
+    log(f"  stage-1 step, serial (above): median {sec * 1e3:.1f} ms, peak "
+        f"memory {peak:.2f} GiB on {card}")
+    for name, tr in runs.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        sec, times = warm_median(lambda: align_train_step(tr, batch, gen),
+                                 n=ALIGN_VARIANT_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  stage-1 step, {name}: median {sec * 1e3:.1f} ms over "
+            f"{len(times)} ({[round(x * 1e3, 1) for x in times]} ms), peak "
+            f"memory {peak:.2f} GiB on {card}")
+        add_seconds(f"6b {name} timed", t0)
+    return measured
 
 
 def randomize_bn(module, seed):
@@ -3132,7 +3503,7 @@ KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
 def profile_device(fn, sec, what, top_n=12):
     """Device time of one warm call of ``fn`` by kernel group
     (torch.profiler), and its ``top_n`` kernels; ``sec`` is its warm
-    host-clock time."""
+    host-clock time.  Returns the device time in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3140,12 +3511,23 @@ def profile_device(fn, sec, what, top_n=12):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    report_profile(prof, sec, what, top_n)
+    return report_profile(prof, sec, what, top_n)
+
+
+def device_sum_ms(prof):
+    """The summed device time of a profile's kernels and copies (ms), as
+    :func:`report_profile` sums it."""
+    import torch
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
 def report_profile(prof, sec, what, top_n=12):
     """Log a profile's device time by kernel group and its ``top_n``
-    kernels; ``sec`` is the host-clock time it covers."""
+    kernels; ``sec`` is the host-clock time it covers.  Returns the device
+    time in ms (0 where none was recorded)."""
     import torch
     groups, top = {}, []
     for evt in prof.key_averages():
@@ -3160,7 +3542,7 @@ def report_profile(prof, sec, what, top_n=12):
     total = sum(groups.values())
     if total == 0:
         log("  profiler: no device time recorded")
-        return
+        return 0.0
     log(f"  profiled {what}: device busy {total / 1e3:.1f} ms of the "
         f"{sec * 1e3:.1f} ms warm {what} "
         f"({100 * total / 1e3 / (sec * 1e3):.1f} %), "
@@ -3169,6 +3551,7 @@ def report_profile(prof, sec, what, top_n=12):
         log(f"    {g:22s} {us / 1e3:8.2f} ms  {100 * us / total:5.1f} %")
     for us, n, key in sorted(top, reverse=True)[:top_n]:
         log(f"    top: {us / 1e3:8.2f} ms  x{n:<5d} {key[:100]}")
+    return total / 1e3
 
 
 def main() -> int:
@@ -3197,7 +3580,8 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    with timed("2 build"):
+        logs = _build.build_all()
     log(f"[2/7] built {len(logs)} kernel sources in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3207,39 +3591,53 @@ def main() -> int:
     log("[3/7] kernels against plain versions (bf16 limit "
         f"{BF16_REL:g}*|ref| + {BF16_ABS:g}, fp32 limit {FP32_ABS:g}; "
         f"backward: {GRAD_REL:g}*max|ref|, + {BF16_REL:g}*|ref| in bf16)")
-    rows = phase_kernels()
-    rows += phase_backward_kernels()
-    phase_lab_yardsticks()
+    with timed("3"):
+        rows = phase_kernels()
+        rows += phase_backward_kernels()
+        with timed("3 native oracle"):
+            phase_native()
+        phase_lab_yardsticks()
 
     log("[4/7] HRDA* path")
-    launches, sec = phase_main_path(card)
+    with timed("4"):
+        launches, sec = phase_main_path(card)
     log("[5/7] align path")
-    launches["local_correlation"], align_sec = phase_align(card)
+    with timed("5"):
+        launches["local_correlation"], align_sec = phase_align(card)
     log("[6/7] UDA train step")
-    train_launches, train_sec, peak = phase_train(card)
+    with timed("6"):
+        train_launches, train_sec, peak = phase_train(card)
     for name in ("sra_attention_backward", "dwconv3x3_gelu_backward"):
         launches[name] = train_launches[name]
     log("[6b/7] UAWarpC train step, stage 1")
-    align_launches, align_train_sec, align_peak = phase_align_train(card)
+    with timed("6b"):
+        (align_launches, folded_launches, align_train_sec,
+         align_peak) = phase_align_train(card)
     launches["local_correlation_backward"] = align_launches[
         "local_correlation_backward"]
     train_launches["local_correlation_backward"] = 0
     log("[6c/7] Refign-DeepLabV2: inference and UDA train step")
-    dl_launches, dl_sec, dl_peak = phase_deeplabv2(card)
+    with timed("6c"):
+        dl_launches, dl_sec, dl_peak = phase_deeplabv2(card)
     root = tempfile.mkdtemp(prefix="refign_runtime_")
     try:
         log("[6d/7] runtime: the CLI's fit, validate, predict and test on "
             "synthetic trees at the datasets' sizes")
-        rt_launches, rt_sec, rt = phase_runtime(card, train_sec,
-                                                align_train_sec, root)
+        with timed("6d"):
+            rt_launches, rt_sec, rt = phase_runtime(card, train_sec,
+                                                    align_train_sec, root)
         log("[6e/7] data parallel over torch.distributed: the CLI under "
             "torch's launcher at world size 1 over NCCL; 2 gloo ranks on "
             "cuda:0 against one process")
-        phase_distributed(card, rt, root)
+        with timed("6e"):
+            phase_distributed(card, rt, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s")
+    log(f"[7/7] done in {time.perf_counter() - t_start:.1f} s; host-clock "
+        f"seconds by phase and part:")
+    for what, sec_ in sorted(SECONDS.items()):
+        log(f"  {what}: {sec_:.1f} s")
     sources = {"sra_attention": ("refign_tpu_torch/csrc/sra_attention.cu",
                                  "refign_tpu/ops/attention.py:82"),
                "dwconv3x3_gelu": ("refign_tpu_torch/csrc/dwconv3x3_gelu.cu",
@@ -3274,7 +3672,8 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             launches_train_step=train_launches[name],
-            launches_align_train_step=ALIGN_TRAIN_LAUNCHES.get(name, 0),
+            launches_align_train_step=align_launches[name],
+            launches_align_train_step_folded=folded_launches[name],
             launches_deeplabv2_step=dl_launches[name],
             launches_cli_fit=rt_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
@@ -3308,6 +3707,18 @@ def main() -> int:
             k3_align_train = dict(ms_align_train_step=k_ms,
                                   bound_ms_align_train_step=k_bound,
                                   plain_ms_align_train_step=k_plain)
+    for name, kind in (("local_correlation", "align-fold"),
+                       ("local_correlation_backward", "path-fold")):
+        part = [r for r in rows if r["name"] == name and r["kind"] == kind]
+        k_ms, k_bound, k_plain = (sum(r[k] for r in part)
+                                  for k in ("ms", "bound_ms", "plain_ms"))
+        log(f"  {name} {kind} per folded stage-1 step (3 launches of 18 "
+            f"rows): {k_ms:.3f} ms, bound {k_bound:.4f} ms "
+            f"({100 * k_bound / k_ms:.1f} % of it), plain {k_plain:.3f} ms")
+        next(k for k in kernels if k["name"] == name).update(
+            ms_align_train_step_folded=k_ms,
+            bound_ms_align_train_step_folded=k_bound,
+            plain_ms_align_train_step_folded=k_plain)
     part = [r for r in rows if r["name"] == "local_correlation"
             and r["kind"] == "deeplabv2"]
     k_ms, k_bound, k_plain = (sum(r[k] for r in part)

@@ -37,10 +37,17 @@ the global batch's draws, noise fields included, and keeps its rows
 come from the global losses and the gradients are averaged.
 ``remat_modules`` (the stage default) recomputes each decoder,
 refinement and uncertainty module in the backward, its BN statistics
-updated once.  The JAX step's other options, which fit the step into a
-TPU's memory (``fold_passes`` with grouped BatchNorm, ``remat_head`` and
-its policy and ``remat_skip_last``; ``refign_tpu/tasks/align_task.py:
-79-97``), are not ported.
+updated once.  The JAX step's memory options (``refign_tpu/alignment/
+trainer.py:297-360``): ``remat_head`` recomputes each whole head pass
+(``remat_head_policy`` 'dots': all but its convolutions' and products'
+outputs), but the last with ``remat_skip_last``; ``fold_passes`` runs the
+three passes as one head pass over their inputs concatenated in pass order
+[prime -> i, prime -> j, j -> i], its BatchNorms in 3 groups
+(``nn.layers.grouped_bn``: each group normalised on its own statistics,
+the running ones updated in group order, as the three serial passes do),
+and slices the output by group (``remat_head`` does not apply to it, as in
+JAX).  Under a process group each rank folds its own rows, so group g of
+every rank is pass g.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..nn.layers import grouped_bn, remat_call
 from ..ops.resize import interpolate
 from ..ops.warp import confidence_from_logvar
 from ..parallel import mesh
@@ -127,13 +135,22 @@ def align_forward(net: AlignmentNet, images_i: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class AlignConfig:
-    """Static settings of the step that the stage YAMLs set (the JAX
-    ``AlignConfig`` less its TPU memory options and the settings both
-    stages leave at one value: the Huber loss, level weights 1, the
-    visibility thresholds' defaults, ImageNet normalisation, uint8 batches
-    normalised on the device).  ``entry.UAWARPC_STAGE1`` and
-    ``UAWARPC_STAGE2`` hold the two stages."""
+    """Static settings of the step (the JAX ``AlignConfig`` with its
+    defaults; the JAX ``device_normalize`` switch has no counterpart: uint8
+    batches are always normalised on the device, float ones pass).
+    ``entry.UAWARPC_STAGE1`` and ``UAWARPC_STAGE2`` hold the two stages."""
+    loss_type: str = "HuberLoss"
+    # passed in the adaptive weighting's weight_ss slot, as the reference
+    # does (alignment_model.py:141-143): False (both stages) gives ratio
+    # 0, so the weights are (0, 1) where loss_us > loss_ss and (1, 100)
+    # otherwise
+    apply_constant_flow_weights: bool = False
+    level_weights: Optional[Tuple[float, ...]] = None
+    # the W-bipath loss's cyclic-consistency visibility mask and its
+    # thresholds
     visibility_mask: bool = False
+    alpha_1: float = 0.03
+    alpha_2: float = 0.5
     include_transforms: Tuple[str, ...] = ("hom", "tps", "afftps")
     random_alpha: float = 0.26
     random_s: float = 0.45
@@ -144,25 +161,25 @@ class AlignConfig:
     random_t_tps_for_afftps: float = 0.08
     add_elastic: bool = False
     # the prime view's photometric augmentations: jitter (b, c, s, h),
-    # channel shuffle, blur (p, kernel_size, sigma_lo, sigma_hi)
+    # channel shuffle, blur (p, kernel_size, sigma_lo, sigma_hi), in the
+    # space the normalisation below maps back to [0, 1]
     prime_jitter: Optional[Tuple[float, float, float, float]] = None
     prime_channel_shuffle: bool = False
     prime_blur: Optional[Tuple[float, int, float, float]] = None
     # centre crop of everything after the flow is synthesised
     crop_after_flow: Optional[Tuple[int, int]] = None
+    norm_mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    norm_std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
     compute_dtype: str = "bfloat16"
+    remat_head: bool = False
+    remat_head_policy: Optional[str] = None
+    remat_skip_last: bool = False
+    fold_passes: bool = False
     remat_modules: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
-
-
-# The reference passes apply_constant_flow_weights (False in both stages)
-# in the weight_ss slot of its adaptive weighting
-# (alignment_model.py:141-143), as the JAX step does: ratio 0, so the
-# weights are (0, 1) where loss_us > loss_ss and (1, 100) otherwise.
-WEIGHT_SS = 0.0
 
 
 @dataclasses.dataclass
@@ -230,12 +247,13 @@ def draw_align(cfg: AlignConfig, B: int, H: int, W: int,
     return AlignDraws(coins, photometric, flows, seed)
 
 
-def device_normalize(x: torch.Tensor) -> torch.Tensor:
-    """(x / 255 - mean) / std, ImageNet's, of a uint8 batch on its device;
-    float batches (normalised already) pass through."""
+def device_normalize(x: torch.Tensor, cfg: AlignConfig) -> torch.Tensor:
+    """(x / 255 - mean) / std of a uint8 batch on its device (the
+    normalisation of ``cfg``); float batches (normalised already) pass
+    through."""
     if x.dtype != torch.uint8:
         return x
-    return renorm(x.float() / 255.0)
+    return renorm(x.float() / 255.0, cfg.norm_mean, cfg.norm_std)
 
 
 def crop_window(cfg: AlignConfig, H: int, W: int
@@ -253,7 +271,7 @@ def prime_photometric(draws: Sequence[PrimeDraws], base: torch.Tensor,
     its denormalised [0, 1] space (the transform order of the stage
     YAMLs)."""
     out = []
-    for d, img in zip(draws, denorm(base)):
+    for d, img in zip(draws, denorm(base, cfg.norm_mean, cfg.norm_std)):
         if d.jitter is not None:
             img = color_jitter_bcsh(img, d.jitter, *cfg.prime_jitter)
         if d.perm is not None:
@@ -262,7 +280,7 @@ def prime_photometric(draws: Sequence[PrimeDraws], base: torch.Tensor,
             img = gaussian_blur_image(img, d.blur_sigma,
                                       kernel_size=int(cfg.prime_blur[1]))
         out.append(img)
-    return renorm(torch.stack(out))
+    return renorm(torch.stack(out), cfg.norm_mean, cfg.norm_std)
 
 
 def prepare_alignment_batch(draws: AlignDraws, images_ref: torch.Tensor,
@@ -379,8 +397,8 @@ def _forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                       ) -> Dict[str, torch.Tensor]:
     cfg, state = trainer.cfg, trainer.state
     cdt = cfg.dtype
-    images_ref = device_normalize(batch["image_ref"])
-    images_trg = device_normalize(batch["image_trg"])
+    images_ref = device_normalize(batch["image_ref"], cfg)
+    images_trg = device_normalize(batch["image_trg"], cfg)
     out_slice = crop_window(cfg, *images_trg.shape[1:3])
     with torch.no_grad():
         prime = prepare_alignment_batch(draws, images_ref, images_trg, cfg,
@@ -405,23 +423,54 @@ def _forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
     head = state.head
     params = None if cdt == torch.float32 else cast_params(head, cdt)
 
-    def head_pass(trg, src, trg256, src256):
+    def head_pass(trg, src, trg256, src256, remat=False):
         # the head maps its first pyramid (target) onto its second
-        return apply_cast(head, cdt, trg, src, trg256, src256, (H, W),
-                          params=params)
+        args = (trg, src, trg256, src256, (H, W))
+        if remat:
+            return remat_call(head, *args, policy=cfg.remat_head_policy,
+                              params=params)
+        return apply_cast(head, cdt, *args, params=params)
 
-    prime_i = head_pass(pyr_prime, pyr_i, pyr_prime_256, pyr_i_256)
-    prime_j = head_pass(pyr_prime, pyr_j, pyr_prime_256, pyr_j_256)
-    j_i = head_pass(pyr_j, pyr_i, pyr_j_256, pyr_i_256)
+    if cfg.fold_passes:
+        B = idx.shape[0]
+
+        def cat3(*levels):
+            return [torch.cat(ts) for ts in zip(*levels)]
+
+        with grouped_bn(head, 3):
+            out3 = head_pass(cat3(pyr_prime, pyr_prime, pyr_j),
+                             cat3(pyr_i, pyr_j, pyr_i),
+                             cat3(pyr_prime_256, pyr_prime_256, pyr_j_256),
+                             cat3(pyr_i_256, pyr_j_256, pyr_i_256))
+
+        def group(g):
+            sl = slice(g * B, (g + 1) * B)
+            return [tuple(t[sl] for t in lv) if isinstance(lv, tuple)
+                    else lv[sl] for lv in out3]
+
+        prime_i, prime_j, j_i = group(0), group(1), group(2)
+    else:
+        remat = cfg.remat_head
+        prime_i = head_pass(pyr_prime, pyr_i, pyr_prime_256, pyr_i_256,
+                            remat)
+        prime_j = head_pass(pyr_prime, pyr_j, pyr_prime_256, pyr_j_256,
+                            remat)
+        j_i = head_pass(pyr_j, pyr_i, pyr_j_256, pyr_i_256,
+                        remat and not cfg.remat_skip_last)
 
     ss = multi_scale_flow_loss(prime_i, prime["flow_prime"],
-                               prime["mask_prime"])
+                               prime["mask_prime"], loss_type=cfg.loss_type,
+                               level_weights=cfg.level_weights)
     us = wbipath_loss(prime_j, j_i, prime["flow_prime"], prime["mask_prime"],
-                      visibility_mask=cfg.visibility_mask)
+                      loss_type=cfg.loss_type,
+                      level_weights=cfg.level_weights,
+                      visibility_mask=cfg.visibility_mask,
+                      alpha_1=cfg.alpha_1, alpha_2=cfg.alpha_2)
     # the weights from the global losses: the same on every rank
     ss_all, us_all = mesh.mean_over_ranks(
         torch.stack([ss.detach(), us.detach()])).unbind()
-    w_ss, w_us = adaptive_loss_weights(ss_all, us_all, weight_ss=WEIGHT_SS)
+    w_ss, w_us = adaptive_loss_weights(
+        ss_all, us_all, weight_ss=float(cfg.apply_constant_flow_weights))
     loss = w_ss * ss + w_us * us
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

@@ -51,9 +51,8 @@ def _known(args: Dict[str, Any], names: Sequence[str],
 # ---------------------------------------------------------------------------
 
 def build_backbone(spec: Dict[str, Any]):
-    """Returns (module, pretrained_path_or_keyword).  The JAX package's
-    TPU remat policy (``remat_policy``) has no counterpart and is
-    ignored, as are arguments neither package knows."""
+    """Returns (module, pretrained_path_or_keyword).  Arguments neither
+    package knows are ignored."""
     from .models.mix_transformer import MixVisionTransformer
     from .models.resnet import ResNet
     from .models.vgg import VGG
@@ -63,7 +62,7 @@ def build_backbone(spec: Dict[str, Any]):
     if name == "MixVisionTransformer":
         return MixVisionTransformer(**_known(
             args, ("model_type", "drop_path_rate", "qk_scale", "in_chans",
-                   "remat"))), pretrained
+                   "remat", "remat_policy"))), pretrained
     if name == "ResNet":
         return ResNet(**_known(
             args, ("model_type", "strides", "dilations", "out_indices",
@@ -113,13 +112,9 @@ def build_head(spec: Dict[str, Any], in_channels: Sequence[int] = ()):
         return DeepLabV2Head(in_channels=in_channels[idx], **known), \
             pretrained
     if name == "UAWarpCHead":
-        for opt in ("batch_norm", "refinement_at_adaptive_res",
-                    "refinement_at_finest_level"):
-            if not args.get(opt, True):
-                raise ValueError(f"UAWarpCHead: {opt}=False is not ported "
-                                 "(every configuration leaves it True)")
         return UAWarpCHead(**_known(
-            args, ("in_index", "estimate_uncertainty",
+            args, ("in_index", "batch_norm", "refinement_at_adaptive_res",
+                   "refinement_at_finest_level", "estimate_uncertainty",
                    "iterative_refinement"), ("in_index",))), pretrained
     raise ValueError(f"unknown head {name}")
 

@@ -61,11 +61,18 @@ def _bilinear(x: torch.Tensor, size) -> torch.Tensor:
 
 
 class UAWarpCHead(nn.Module):
-    """The head with the reference's defaults that no config changes: BN
-    in every decoder, refinement at the adaptive resolution and at the
-    finest level."""
+    """The head (the JAX head's options): ``batch_norm`` in every decoder,
+    refinement and uncertainty module (else a bias on each conv), the
+    refinement modules at the adaptive resolution (level 3) and at the
+    finest level, each left out where its flag is False (with its
+    parameters).  ``nn.layers.grouped_bn(head, G)`` normalises G row
+    groups of the batch each on its own statistics in train mode (G head
+    calls in one, the folded UAWarpC step's; JAX's ``bn_groups``)."""
 
     def __init__(self, in_index: Sequence[int] = (0, 1),
+                 batch_norm: bool = True,
+                 refinement_at_adaptive_res: bool = True,
+                 refinement_at_finest_level: bool = True,
                  estimate_uncertainty: bool = True,
                  iterative_refinement: bool = False,
                  remat_modules: bool = False):
@@ -75,19 +82,25 @@ class UAWarpCHead(nn.Module):
         self.estimate_uncertainty = estimate_uncertainty
         self.iterative_refinement = iterative_refinement
         local_in = PATCH * PATCH + 2 + (1 if estimate_uncertainty else 0)
-        self.decoder4 = OpticalFlowEstimator(GLOBAL_GRID ** 2)
-        self.decoder3 = OpticalFlowEstimator(local_in)
-        self.decoder2 = OpticalFlowEstimator(local_in)
-        self.decoder1 = OpticalFlowEstimator(local_in + 2)
-        self.refinement_module_adaptive = RefinementModule(FEAT)
-        self.refinement_module_finest = RefinementModule(FEAT)
+        norm = dict(batch_norm=batch_norm)
+        self.decoder4 = OpticalFlowEstimator(GLOBAL_GRID ** 2, **norm)
+        self.decoder3 = OpticalFlowEstimator(local_in, **norm)
+        self.decoder2 = OpticalFlowEstimator(local_in, **norm)
+        self.decoder1 = OpticalFlowEstimator(local_in + 2, **norm)
+        self.refinement_module_adaptive = (
+            RefinementModule(FEAT, **norm) if refinement_at_adaptive_res
+            else None)
+        self.refinement_module_finest = (
+            RefinementModule(FEAT, **norm) if refinement_at_finest_level
+            else None)
         self.reduce = conv2d(FEAT, 2, kernel_size=1)
         if estimate_uncertainty:
             self.estimate_uncertainty_components4 = UncertaintyModule(
-                GLOBAL_GRID)
+                GLOBAL_GRID, **norm)
             for lvl in (3, 2, 1):
                 setattr(self, f"estimate_uncertainty_components{lvl}",
-                        UncertaintyModule(PATCH, feed_in_previous=True))
+                        UncertaintyModule(PATCH, feed_in_previous=True,
+                                          **norm))
 
     def init_weights(self, generator: torch.Generator) -> None:
         """torch's conv default, BN ones/zeros (the JAX head's init)."""
@@ -155,8 +168,9 @@ class UAWarpCHead(nn.Module):
                                               out_dtype=cdt)
         res_flow3, x3 = self._run(self.decoder3,
                                   decoder_input(corr3, up_flow4, up_u4))
-        res_flow3 = res_flow3 + self._run(self.refinement_module_adaptive,
-                                          x3)
+        if self.refinement_module_adaptive is not None:
+            res_flow3 = res_flow3 + self._run(
+                self.refinement_module_adaptive, x3)
         flow3 = res_flow3.float() + up_flow4
         if uncert:
             u3 = self._run(um3, corr3, x3, up_u4.to(cdt),
@@ -211,7 +225,9 @@ class UAWarpCHead(nn.Module):
                                               out_dtype=cdt)
         res_flow1, x1 = self._run(
             self.decoder1, decoder_input(corr1, up_flow2, up_u2, up_feat2))
-        res_flow1 = res_flow1 + self._run(self.refinement_module_finest, x1)
+        if self.refinement_module_finest is not None:
+            res_flow1 = res_flow1 + self._run(self.refinement_module_finest,
+                                              x1)
         flow1 = res_flow1.float() + up_flow2
 
         flow4 = _scale_flow(flow4_256, w_orig / w_256, h_orig / h_256)

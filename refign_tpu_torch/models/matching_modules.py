@@ -2,11 +2,14 @@
 (counterpart of ``refign_tpu/models/matching_modules.py``).
 
 The residual-skip flow decoder, the dilated refinement module and the
-correlation-uncertainty module.  Activation LeakyReLU(0.1), BatchNorm (the
-reference's ``batch_norm=True``; no config turns it off): on its running
-statistics in eval mode, on the batch's in train mode, where it updates the
-running ones (UAWarpC training, ``refign_tpu/models/matching_modules.py``
-with ``train=True``).
+correlation-uncertainty module.  Activation LeakyReLU(0.1), BatchNorm
+(``batch_norm``, the reference's default; False puts a bias on each conv
+instead): on its running statistics in eval mode, on the batch's in train
+mode, where it updates the running ones (UAWarpC training,
+``refign_tpu/models/matching_modules.py`` with ``train=True``).
+``nn.layers.grouped_bn`` sets their BatchNorms to normalise G row groups
+of the batch each on its own statistics, the JAX modules' ``bn_groups``
+and ``_PackedBN.groups``.
 The decoders take their input width, as torch layers do; the parameter
 names are those of the JAX modules, so ``load_jax_variables`` fills them.
 
@@ -38,11 +41,12 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 class OpticalFlowEstimator(nn.Module):
     """Residual-skip flow decoder; returns (2-ch mapping or flow, feat)."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, batch_norm: bool = True):
         super().__init__()
 
         def cbr(cin, cout, k):
-            return ConvBNReLU(cin, cout, kernel_size=k, activation=None)
+            return ConvBNReLU(cin, cout, kernel_size=k, activation=None,
+                              use_norm=batch_norm)
 
         self.conv_0 = cbr(in_channels, 128, 3)
         self.conv_1 = cbr(128, 128, 3)
@@ -67,12 +71,13 @@ class RefinementModule(nn.Module):
     """Dilated residual flow refiner: dilations 1, 2, 4, 8, 16, 1, then a
     3x3 prediction (``dc_convs.6``)."""
 
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, batch_norm: bool = True):
         super().__init__()
         chans = [in_channels, 128, 128, 128, 96, 64, 32]
         dils = [1, 2, 4, 8, 16, 1]
         layers = [ConvBNReLU(chans[i], chans[i + 1], kernel_size=3,
-                             dilation=d, activation=leaky_relu)
+                             dilation=d, activation=leaky_relu,
+                             use_norm=batch_norm)
                   for i, d in enumerate(dils)]
         layers.append(conv2d(32, 2, kernel_size=3, padding=1))
         self.dc_convs = nn.Sequential(*layers)
@@ -87,16 +92,19 @@ class UncertaintyModule(nn.Module):
     decoder feature (and, with ``feed_in_previous``, the upsampled previous
     log-variance and flow) into a 1-channel log-variance."""
 
-    def __init__(self, search_size: int = 9, feed_in_previous: bool = False):
+    def __init__(self, search_size: int = 9, feed_in_previous: bool = False,
+                 batch_norm: bool = True):
         super().__init__()
         if search_size not in (9, 16):
             raise ValueError(f"unsupported search_size {search_size}")
         self.search_size = search_size
         self.feed_in_previous = feed_in_previous
 
+        # a group's rows of the little images are its pixels' rows, as
+        # the batch's rows lead the (B*H*W, S, S, 1) stack
         def cbr(cin, cout, padding=None):
             return ConvBNReLU(cin, cout, kernel_size=3, padding=padding,
-                              activation=leaky_relu)
+                              activation=leaky_relu, use_norm=batch_norm)
 
         self.conv_0 = cbr(1, 32, padding=0)
         self.conv_1 = cbr(32, 32, padding=0)

@@ -7,9 +7,12 @@ spatial-reduction attention (sr_ratios 8/4/2/1) through kernel K1
 kernel K2 (``ops/dwconv.py``).  In train mode the blocks' stochastic depth
 draws from the generator passed to ``forward``, and ``remat=True`` recomputes
 each block in the backward (``torch.utils.checkpoint``, non-reentrant; the
-JAX ``nn.remat`` of ``refign_tpu/models/mix_transformer.py:198-259``).  The
-drop-path draws are made before a block is checkpointed and handed to it,
-so the recompute applies the same ones.
+JAX ``nn.remat`` of ``refign_tpu/models/mix_transformer.py:198-259``), all
+of it, or with ``remat_policy='dots'`` all but the outputs of its matrix
+products and convolutions (``nn.layers.remat_call``; JAX's
+``dots_with_no_batch_dims_saveable``): K1 and K2 run again in the
+recompute either way.  The drop-path draws are made before a block is
+checkpointed and handed to it, so the recompute applies the same ones.
 
 Parameter names follow the reference's torch keys, so the JAX package's
 ``convert_state_dict`` maps this module's ``state_dict`` onto its flax tree:
@@ -24,8 +27,9 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from ..nn.layers import (DropPath, Linear, TorchConv, TorchLayerNorm,
-                         conv2d, kaiming_normal_fanout_, normal_, remat_call)
+from ..nn.layers import (REMAT_POLICIES, DropPath, Linear, TorchConv,
+                         TorchLayerNorm, conv2d, kaiming_normal_fanout_,
+                         normal_, remat_call)
 from ..ops.attention import sra_attention
 from ..ops.dwconv import dwconv3x3_gelu
 
@@ -150,16 +154,20 @@ class OverlapPatchEmbed(nn.Module):
 class MixVisionTransformer(nn.Module):
     """4-stage MiT backbone; returns 4 NHWC feature maps at 1/4, 1/8, 1/16
     and 1/32 resolution.  ``remat`` recomputes each block in the backward
-    where grad is enabled."""
+    where grad is enabled, under ``remat_policy`` (None: the whole block;
+    'dots': keeping its products' and convolutions' outputs)."""
 
     def __init__(self, model_type: str = "mit_b5",
                  drop_path_rate: float = 0.1,
                  qk_scale: Optional[float] = None, in_chans: int = 3,
-                 remat: bool = False):
+                 remat: bool = False, remat_policy: Optional[str] = None):
         super().__init__()
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
         cfg = ARCH_SETTINGS[model_type]
         self.model_type = model_type
         self.remat = remat
+        self.remat_policy = remat_policy
         self.embed_dims = list(cfg["embed_dims"])
         depths = cfg["depths"]
         dpr = torch.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -187,7 +195,8 @@ class MixVisionTransformer(nn.Module):
             x = getattr(self, f"patch_embed{s}")(x)
             for blk in getattr(self, f"block{s}"):
                 keeps = blk.masks(x, generator)
-                x = remat_call(blk, x, *keeps) if remat else blk(x, *keeps)
+                x = (remat_call(blk, x, *keeps, policy=self.remat_policy)
+                     if remat else blk(x, *keeps))
             x = getattr(self, f"norm{s}")(x)
             outs.append(x)
         return outs

@@ -17,8 +17,11 @@ Numerics kept from the JAX package:
   process group (``parallel/mesh.py:sharded_pass``) it is sync-BN: the
   per-channel means of x and x^2 are averaged over the ranks (JAX's
   ``axis_name`` pmean) by a sum whose backward sums the gradients over the
-  ranks, and the unbiased variance counts the global batch.  ``groups >
-  1`` is not ported.
+  ranks, and the unbiased variance counts the global batch.  ``groups =
+  G > 1`` normalises each of G row groups along axis 0 with its own
+  statistics and gives the running ones the G updates in group order
+  (``refign_tpu/nn/layers.py:157-220``): G serial calls in one, the
+  folded UAWarpC step's three head passes.
 * ``DropPath`` and ``Dropout2d`` draw from an explicit ``torch.Generator``
   passed to them in train mode, where a rate > 0 needs one; in a sharded
   pass they draw the global batch's masks and keep this rank's rows.
@@ -26,7 +29,11 @@ Numerics kept from the JAX package:
   checkpoint) and updates its BatchNorm running statistics once, in the
   forward, as JAX's ``nn.remat`` returns ``batch_stats`` once; sync-BN's
   recompute replays the forward's reduced statistics instead of reducing
-  again.
+  again.  ``policy="dots"`` keeps the outputs of the convolutions and of
+  the matrix products without batch dimensions and recomputes the rest
+  (JAX's ``dots_with_no_batch_dims_saveable``, which keeps only the
+  products: the port keeps the convolutions too, cuDNN's share of the
+  work).
 * ``gelu`` is the exact erf form; ``leaky_relu`` has slope 0.1, as in
   the matching modules.
 """
@@ -34,13 +41,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..parallel import mesh
 
@@ -49,7 +57,7 @@ __all__ = [
     "TorchConv", "conv2d", "ConvBNReLU", "MLPEmbed", "DropPath", "Dropout2d",
     "normal_", "uniform_", "kaiming_normal_fanout_", "torch_default_init_",
     "init_convs_torch_default_", "init_convs_kaiming_fanout_",
-    "remat_call",
+    "grouped_bn", "remat_call", "REMAT_POLICIES",
 ]
 
 
@@ -146,24 +154,29 @@ class TorchLayerNorm(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm2d on NHWC (``refign_tpu/nn/layers.py:144-264``, the
-    running-statistics branch in eval and the ungrouped batch-statistics
-    branch in train mode).  Running stats stay fp32 whatever the parameter
-    dtype.  In train mode the statistics are over (N, H, W) in fp32, the
-    variance E[x^2]-E[x]^2, and the running stats take
-    ``(1-m)*ra + m*stat`` with the unbiased variance; ``update_stats =
-    False`` keeps them as they are (the EMA teacher's batch-statistics
-    forward, whose updates the JAX step discards)."""
+    """BatchNorm2d on NHWC (``refign_tpu/nn/layers.py:144-264``): the
+    running statistics in eval mode, the batch's in train mode.  Running
+    stats stay fp32 whatever the parameter dtype.  In train mode the
+    statistics are over (N, H, W) in fp32, the variance E[x^2]-E[x]^2,
+    and the running stats take ``(1-m)*ra + m*stat`` with the unbiased
+    variance; ``update_stats = False`` keeps them as they are (the EMA
+    teacher's batch-statistics forward, whose updates the JAX step
+    discards).  ``groups`` G > 1 (train mode): axis 0 holds G calls' rows,
+    group by group; each group takes its own statistics, and the running
+    stats the G updates in group order."""
 
     momentum = 0.1
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 groups: int = 1):
         super().__init__()
         self.eps = eps
+        self.groups = groups
         self.update_stats = True
         # remat_call's bookkeeping of the reduced statistics: recorded in
-        # the forward, replayed by the recompute
-        self.sync_record: Optional[list] = None
+        # the forward (into every active, possibly nested, call's list),
+        # replayed by the recompute
+        self.sync_records: list = []
         self.sync_replay: Optional[list] = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -172,29 +185,32 @@ class TorchBatchNorm(nn.Module):
 
     def _synced(self, mean: torch.Tensor, mean_sq: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The means of x and x^2 averaged over the ranks (every rank's
-        share has the same count)."""
-        C = mean.shape[0]
+        """The means of x and x^2 ((C,) or (G, C)) averaged over the ranks
+        (every rank's share has the same count)."""
         cached = self.sync_replay.pop(0) if self.sync_replay else None
-        total = mesh.sum_over_ranks(torch.cat([mean, mean_sq]), cached)
-        if self.sync_record is not None:
-            self.sync_record.append(total.detach())
+        total = mesh.sum_over_ranks(torch.stack([mean, mean_sq]), cached)
+        for record in self.sync_records:
+            record.append(total.detach())
         total = total / mesh.world_size()
-        return total[:C], total[C:]
+        return total[0], total[1]
 
-    def _batch_stats(self, x32: torch.Tensor
+    def _batch_stats(self, xs: torch.Tensor, G: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        n = x32.numel() // x32.shape[-1]
+        """Per-channel statistics of the fp32 input: (C,) each for one
+        group, (G, C) for xs (G, N/G, ..., C) of G groups."""
+        lead = 0 if G == 1 else 1
+        n = xs.numel() // (G * xs.shape[-1])
         sync = mesh.reducing()
         if sync:
             n *= mesh.world_size()
         if n < 2:
             # torch.nn.BatchNorm2d's rule: one value has no variance
             raise ValueError(f"BatchNorm in train mode needs more than one "
-                             f"value per channel, got input {tuple(x32.shape)}")
-        axes = tuple(range(x32.dim() - 1))
-        mean = x32.mean(axes)
-        mean_sq = (x32 * x32).mean(axes)
+                             f"value per channel, got input "
+                             f"{tuple(xs.shape)} in {G} groups")
+        axes = tuple(range(lead, xs.dim() - 1))
+        mean = xs.mean(axes)
+        mean_sq = (xs * xs).mean(axes)
         if sync:
             mean, mean_sq = self._synced(mean, mean_sq)
         var = mean_sq - mean.square()
@@ -202,16 +218,29 @@ class TorchBatchNorm(nn.Module):
             m = self.momentum
             with torch.no_grad():
                 unbiased = var * (n / (n - 1))
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var
-                                       + m * unbiased)
+                ra_m, ra_v = self.running_mean, self.running_var
+                # one update a group, in group order
+                for mg, vg in ([(mean, unbiased)] if G == 1
+                               else zip(mean, unbiased)):
+                    ra_m = (1 - m) * ra_m + m * mg
+                    ra_v = (1 - m) * ra_v + m * vg
+                self.running_mean.copy_(ra_m)
+                self.running_var.copy_(ra_v)
         return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
+        G = self.groups if self.training else 1
+        if G > 1:
+            if x.shape[0] % G:
+                raise ValueError(f"BatchNorm of {G} groups got {x.shape[0]} "
+                                 f"rows")
+            x32 = x32.unflatten(0, (G, x.shape[0] // G))
         if self.training:
-            mean, var = self._batch_stats(x32)
+            mean, var = self._batch_stats(x32, G)
+            if G > 1:  # (G, 1, ..., 1, C): each group's per-channel values
+                bshape = (G,) + (1,) * (x.dim() - 1) + (x.shape[-1],)
+                mean, var = mean.reshape(bshape), var.reshape(bshape)
         else:
             mean = self.running_mean.float()
             var = self.running_var.float()
@@ -219,9 +248,32 @@ class TorchBatchNorm(nn.Module):
         b = self.bias.float()
         if x.dtype == torch.bfloat16:
             a = w * torch.rsqrt(var + self.eps)
-            return (x32 * a + (b - mean * a)).to(x.dtype)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * w + b).to(x.dtype)
+            y = x32 * a + (b - mean * a)
+        else:
+            y = (x32 - mean) * torch.rsqrt(var + self.eps) * w + b
+        return (y if G == 1 else y.flatten(0, 1)).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _bn_groups(bns, groups):
+    """Within the block, the BatchNorm layers ``bns`` take ``groups``
+    (one value each)."""
+    saved = [m.groups for m in bns]
+    for m, g in zip(bns, groups):
+        m.groups = g
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, saved):
+            m.groups = g
+
+
+def grouped_bn(module: nn.Module, groups: int):
+    """Within the block, every BatchNorm of ``module`` normalises ``groups``
+    row groups, each on its own statistics (the JAX step's
+    ``head.clone(bn_groups=...)``)."""
+    bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
+    return _bn_groups(bns, [groups] * len(bns))
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -419,15 +471,16 @@ class Dropout2d(nn.Module):
 
 @contextlib.contextmanager
 def _recording(bns, records: dict):
-    """Within the block, the BatchNorm layers ``bns`` record the
-    statistics they reduce over the ranks into ``records``."""
+    """Within the block, the BatchNorm layers ``bns`` also record the
+    statistics they reduce over the ranks into ``records`` (a
+    ``remat_call`` nested in another records into both)."""
     for m in bns:
-        m.sync_record = records.setdefault(m, [])
+        m.sync_records.append(records.setdefault(m, []))
     try:
         yield
     finally:
         for m in bns:
-            m.sync_record = None
+            m.sync_records.pop()
 
 
 @contextlib.contextmanager
@@ -435,19 +488,36 @@ def _replaying(bns, records: dict):
     """Within the block, the BatchNorm layers ``bns`` leave their running
     statistics as they are and take the statistics ``records`` holds
     instead of reducing them over the ranks again."""
-    saved = [m.update_stats for m in bns]
+    saved = [(m.update_stats, m.sync_replay) for m in bns]
     for m in bns:
         m.update_stats = False
         m.sync_replay = list(records.get(m, ()))
     try:
         yield
     finally:
-        for m, flag in zip(bns, saved):
+        for m, (flag, replay) in zip(bns, saved):
             m.update_stats = flag
-            m.sync_replay = None
+            m.sync_replay = replay
 
 
-def remat_call(module: nn.Module, *args):
+# the ops whose outputs a "dots" recompute keeps (aten's forms of F.conv2d
+# and of F.linear on one matrix: a product with batch dimensions is bmm)
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.convolution.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# remat_call's policies: None recomputes the whole call; "dots" keeps the
+# convolutions' and the batch-free matrix products' outputs
+REMAT_POLICIES = (None, "dots")
+
+
+def remat_call(module: nn.Module, *args, policy: Optional[str] = None,
+               params: Optional[Dict[str, torch.Tensor]] = None):
     """``module(*args)`` recomputed in the backward (non-reentrant
     checkpoint).  The module's current parameters, which under
     ``torch.func.functional_call`` are the caller's cast copies, are passed
@@ -457,19 +527,35 @@ def remat_call(module: nn.Module, *args):
     updates them in its forward, and a second update would count the
     batch twice.  The recompute runs in the sharded pass of the call
     (``parallel/mesh.py``), and sync-BN's recompute replays the statistics
-    its forward reduced over the ranks: no second collective."""
-    names, values = zip(*module.named_parameters())
+    its forward reduced over the ranks: no second collective; it also
+    keeps the BatchNorm groups of the call (``grouped_bn``).
+    ``policy="dots"`` keeps the outputs of the convolutions and of the
+    matrix products without batch dimensions from the forward and
+    recomputes everything else, hand-written kernels included (selective
+    checkpointing).  ``params`` (by name, every parameter of the module):
+    run on these tensors instead (a cast made by the caller,
+    ``parallel/mesh.py:cast_params``)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r} (known: "
+                         f"{REMAT_POLICIES})")
+    names, values = zip(*(params or dict(module.named_parameters())).items())
     n = len(args)
     bns = [m for m in module.modules() if isinstance(m, TorchBatchNorm)]
     records: dict = {}
     block = mesh.pass_block()
+    # the recompute runs with the BatchNorm groups of the call
+    groups = [m.groups for m in bns]
     calls = []
 
     def run(*a):
         ctx = (_replaying(bns, records) if calls
                else _recording(bns, records))
         calls.append(None)
-        with ctx, mesh.resume_pass(block):
+        with ctx, _bn_groups(bns, groups), mesh.resume_pass(block):
             return functional_call(module, dict(zip(names, a[n:])), a[:n])
 
-    return checkpoint(run, *args, *values, use_reentrant=False)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+    return checkpoint(run, *args, *values, use_reentrant=False, **kw)

@@ -9,8 +9,12 @@ and sparse EPE / PCK / AUSE evaluation (``utils/sparse_epe.py``).
 Evaluation runs the frozen backbone as the train state holds it (in the
 compute dtype) and a copy of the head cast to the same dtype; the JAX
 task evaluates in fp32.  With ``trainer.precision: 32`` both are fp32.
-The JAX task's TPU memory options (``remat_head`` and its policy,
-``remat_skip_last``, ``fold_passes``) have no counterpart and are ignored.
+``model.init_args`` sets the step's options as the JAX task reads them:
+``apply_constant_flow_weights``, the unsupervised loss's
+``visibility_mask``, ``alpha_1`` and ``alpha_2``, and the memory options
+``remat_modules`` (default on), ``remat_head``, ``remat_head_policy``,
+``remat_skip_last`` and ``fold_passes``; the data's ``normalize_settings``
+give ``norm_mean`` and ``norm_std``.
 
 Data parallel (``parallel/mesh.py``): the fit checks that the world size
 divides the batch, every rank builds the global batch and its draws and
@@ -24,7 +28,6 @@ import os
 import time
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from ..alignment import trainer as atr
@@ -70,25 +73,18 @@ class AlignTask:
         pp = getattr(datamodule, "prime_photometric_settings", {}) or {}
         norm = getattr(datamodule, "normalize_settings", None) or {}
         us_args = (margs.get("unsupervised_loss") or {}).get("init_args", {})
-        # settings every configuration leaves at one value, which the
-        # port's step fixes
-        fixed = {"apply_constant_flow_weights": (
-                     margs.get("apply_constant_flow_weights", False), False),
-                 "alpha_1": (us_args.get("alpha_1", 0.03), 0.03),
-                 "alpha_2": (us_args.get("alpha_2", 0.5), 0.5),
-                 "norm_mean": (tuple(norm.get("mean", IMNET_MEAN)),
-                               IMNET_MEAN),
-                 "norm_std": (tuple(norm.get("std", IMNET_STD)), IMNET_STD)}
-        for k, (got, want) in fixed.items():
-            if not np.allclose(got, want):
-                raise ValueError(f"AlignTask: {k}={got} is not ported (the "
-                                 f"port's step fixes {want})")
         self.align_cfg = atr.AlignConfig(
             prime_jitter=pp.get("jitter"),
             prime_channel_shuffle=pp.get("channel_shuffle", False),
             prime_blur=pp.get("blur"),
             crop_after_flow=cf.get("crop_after_flow"),
+            norm_mean=tuple(norm.get("mean", IMNET_MEAN)),
+            norm_std=tuple(norm.get("std", IMNET_STD)),
+            apply_constant_flow_weights=bool(margs.get(
+                "apply_constant_flow_weights", False)),
             visibility_mask=us_args.get("visibility_mask", False),
+            alpha_1=us_args.get("alpha_1", 0.03),
+            alpha_2=us_args.get("alpha_2", 0.5),
             include_transforms=tuple(cf.get("include_transforms",
                                             ("hom", "tps", "afftps"))),
             random_alpha=cf.get("random_alpha", 0.26),
@@ -101,7 +97,11 @@ class AlignTask:
             add_elastic=cf.get("add_elastic", False),
             compute_dtype=precision_dtype(
                 self.trainer_cfg.get("precision", 16)),
+            remat_head=bool(margs.get("remat_head", False)),
+            remat_head_policy=margs.get("remat_head_policy"),
+            remat_skip_last=bool(margs.get("remat_skip_last", False)),
             remat_modules=bool(margs.get("remat_modules", True)),
+            fold_passes=bool(margs.get("fold_passes", False)),
         )
         self.pretrained = margs.get("pretrained")
         self.metrics_cfg = parse_metrics(margs.get("metrics", {}))

@@ -53,12 +53,14 @@ def _const(values, x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=x.device)
 
 
-def denorm(img: torch.Tensor) -> torch.Tensor:
-    return img * _const(IMAGENET_STD, img) + _const(IMAGENET_MEAN, img)
+def denorm(img: torch.Tensor, mean=IMAGENET_MEAN,
+           std=IMAGENET_STD) -> torch.Tensor:
+    return img * _const(std, img) + _const(mean, img)
 
 
-def renorm(img: torch.Tensor) -> torch.Tensor:
-    return (img - _const(IMAGENET_MEAN, img)) / _const(IMAGENET_STD, img)
+def renorm(img: torch.Tensor, mean=IMAGENET_MEAN,
+           std=IMAGENET_STD) -> torch.Tensor:
+    return (img - _const(mean, img)) / _const(std, img)
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,12 @@ models/segmentation_model.py:421-436):
 2. the resolved source is tried as a local path, then under
    ``$TORCH_HOME/hub/<source>``;
 3. URLs are looked up in the torch-hub download cache
-   (``$TORCH_HOME/hub/checkpoints/<basename>``).
+   (``$TORCH_HOME/hub/checkpoints/<basename>``) and, on a miss,
+   downloaded there (``torch.hub.download_url_to_file``); a failed
+   download raises and names the file to place and where.
 
-The JAX package downloads a URL that is missing from the cache; the port
-does not (its machines have no network): a miss raises and names the file
-to place and where.  An unresolvable source is always a hard error, never
-a silent random initialisation.
+An unresolvable source is always a hard error, never a silent random
+initialisation.
 """
 from __future__ import annotations
 
@@ -127,11 +127,17 @@ def resolve_pretrained(spec: str, family: Optional[str] = None,
                              os.path.basename(source))
         if os.path.exists(cache):
             return cache
-        raise FileNotFoundError(
-            f"pretrained '{spec}' resolves to {source}, which is not in the "
-            f"torch hub cache; download it on a machine with network access "
-            f"and place it at {cache} (TORCH_HOME="
-            f"{os.environ.get('TORCH_HOME', '')!r}), or name a local file")
+        try:
+            import torch.hub
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            torch.hub.download_url_to_file(source, cache, progress=False)
+            return cache
+        except Exception as e:
+            raise RuntimeError(
+                f"pretrained '{spec}' resolves to {source} but the download "
+                f"failed ({type(e).__name__}: {e}).  Place the file at "
+                f"{cache} manually (TORCH_HOME="
+                f"{os.environ.get('TORCH_HOME', '')!r}).") from e
 
     raise FileNotFoundError(
         f"pretrained '{spec}' (resolved source: {source!r}) not found "

@@ -20,6 +20,15 @@ beside 1, the plain and JAX sums keep it.  One gradient element is built
 to need the bf16 allowance on jump: its only other term nearly cancels the
 kink tap's, so the true value is near 0 while the band's value, without
 the tap, is near the tap's whole term.
+
+The plain version's fp32 sum can also land on 0 exactly where the exact
+sum does not (1 + 2^-26 - 1 in that order): the plain version then takes
+JAX's slope 0.5, the kernel's sum the exact side's slope.  K3-bwd met one
+such tap at the folded UAWarpC step's level (18 x 130 x 130 x 128 on an
+H100; the kernel's gradient equalled the float64 one there, the plain
+version's was 0.04 off), so ``jump`` covers a tap whose sum is 0 while
+some product is not; a tap whose every product is 0 (zero features, the
+padding) is an exact zero, where both sides take 0.5, and gets none.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -197,3 +206,70 @@ def test_gradient_wrong_by_one_tap_fails_the_new_limit(kink):
         chip_smoke.check_corr_grad("one tap dropped", wrong[0].bfloat16(),
                                    refs[0], scales[0], jumps[0],
                                    torch.bfloat16)
+
+
+def _rounded_zero_case():
+    """A 5x5 map of 3-channel bf16 features whose tap (dy, dx) = (+1, 0)
+    at the centre sums three products 1, 2^-26 and -1: the channel order
+    in which the plain version's fp32 sum is exactly 0 (the exact sum is
+    2^-26), a target pixel of zeros, a seeded gradient."""
+    rng = np.random.RandomState(3)
+    base_t = rng.randn(1, 5, 5, 3).astype(np.float32)
+    base_s = rng.randn(1, 5, 5, 3).astype(np.float32)
+    g = torch.from_numpy(rng.randn(1, 5, 5, 9).astype(np.float32))
+    g = g.bfloat16().float()
+    import itertools
+    for order in itertools.permutations((1.0, 2.0 ** -26, -1.0)):
+        t, sv = base_t.copy(), base_s.copy()
+        t[0, 2, 2] = order
+        sv[0, 3, 2] = 1.0
+        t[0, 0, 4] = 0.0  # a target pixel of zeros: exact zeros only
+        t, sv = (torch.from_numpy(x).bfloat16().float() for x in (t, sv))
+        raw = tc.local_correlation_reference(t, sv, 3)
+        if float(raw[0, 2, 2, 7]) == 0.0:
+            return t, sv, g
+    pytest.fail("no channel order rounds the tap's sum onto 0")
+
+
+def _exact_grads(t, s, g):
+    """The fused mode's gradients from float64 sums (the exact slopes; JAX's
+    0.5 where a sum is exactly 0)."""
+    import torch.nn.functional as F
+    a = t.double().requires_grad_()
+    b = s.double().requires_grad_()
+    sp = F.pad(b, (0, 0, 1, 1, 1, 1))
+    raw = torch.stack([(a * sp[:, dy:dy + 5, dx:dx + 5]).sum(-1)
+                       for dy in range(3) for dx in range(3)], -1)
+    return [x.float() for x in torch.autograd.grad(
+        tc.relu_l2norm(raw), (a, b), g.double())]
+
+
+def test_a_sum_rounded_onto_zero_gets_the_kink_allowance():
+    """The exact gradient (what the kernel computed at such a tap on the
+    card) passes the limit only by ``jump`` at the tap; the target pixel
+    of zeros gets no allowance, so a gradient with the other slope there
+    fails."""
+    t, s, g = _rounded_zero_case()
+    refs = _plain_grads(t, s, g, 3, True)
+    exact = _exact_grads(t, s, g)
+    scales, jumps = chip_smoke.corr_grad_scale(t, s, g, 3, True)
+    # gt at the tap's target pixel, gs at its source pixel
+    assert float(jumps[0][0, 2, 2].abs().max()) > 0
+    assert float(jumps[1][0, 3, 2].abs().max()) > 0
+    for i, (x, r, sc, jp) in enumerate(zip(exact, refs, scales, jumps)):
+        chip_smoke.check_corr_grad(f"exact d{i}", x.bfloat16(), r, sc, jp,
+                                   torch.bfloat16)
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        chip_smoke.check_corr_grad("exact d0 without jump",
+                                   exact[0].bfloat16(), refs[0], scales[0],
+                                   torch.zeros_like(jumps[0]),
+                                   torch.bfloat16)
+    # the zero pixel's taps are exact zeros: no allowance, and slope 1 in
+    # place of 0.5 doubles its gt
+    assert float(jumps[0][0, 0, 4].abs().max()) == 0.0
+    wrong = refs[0].clone()
+    wrong[0, 0, 4] *= 2
+    with pytest.raises(AssertionError, match="beyond the limit"):
+        chip_smoke.check_corr_grad("slope 1 at an exact zero",
+                                   wrong.bfloat16(), refs[0], scales[0],
+                                   jumps[0], torch.bfloat16)

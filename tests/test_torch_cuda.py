@@ -580,7 +580,8 @@ def _corr_grad_scale(t, s, g, P, fused):
     summation error, which clamped pixels (graw ~1e12) leave far above an
     element where their terms cancel; and, in the fused mode, the sum over
     the taps whose raw sum lies within fp32 summation noise of 0 (1e-5 of
-    the sum of |t||s|) of their whole term: the ReLU's slope there may
+    the sum of |t||s|, that sum not 0; a plain sum that rounding puts on 0
+    exactly included) of their whole term: the ReLU's slope there may
     differ between the kernel's sums and the plain version's."""
     g = g.float()
     gmag, jump = g.abs(), torch.zeros_like(g)
@@ -594,7 +595,10 @@ def _corr_grad_scale(t, s, g, P, fused):
         slope = torch.where(raw > 0, 1.0, torch.where(raw == 0, 0.5, 0.0))
         whole = (g.abs() + n * (g * n).sum(-1, keepdim=True).abs()) / den
         gmag = slope * whole
-        jump = torch.where((raw != 0) & (raw.abs() <= 1e-5 * absraw),
+        # a raw sum that fp32 rounding puts exactly on 0 is near the kink
+        # too (the exact sum is not 0 where some product is not): only
+        # where every product is 0 is the zero exact, both sides slope 0.5
+        jump = torch.where((absraw > 0) & (raw.abs() <= 1e-5 * absraw),
                            whole, 0.0)
     ta = t.detach().float().abs().requires_grad_()
     sa = s.detach().float().abs().requires_grad_()

@@ -161,7 +161,8 @@ def test_port_imports_no_jax():
         "        'refign_tpu_torch.tasks.seg_task',\n"
         "        'refign_tpu_torch.tasks.align_task', 'refign_tpu_torch.cli',\n"
         "        'refign_tpu_torch.config', 'refign_tpu_torch.parallel.mesh',\n"
-        "        'refign_tpu_torch.utils.sparse_epe'}\n"
+        "        'refign_tpu_torch.utils.sparse_epe',\n"
+        "        'refign_tpu_torch.utils.profiling', 'refign_tpu_torch.native'}\n"
         "assert want <= set(names), sorted(want - set(names))\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'flax')\n"
         "             or k.startswith(('jax.', 'flax.'))\n"

@@ -445,11 +445,12 @@ def pinned_batch():
 # the UAWarpC step (test_torch_dist_align.py)
 # ---------------------------------------------------------------------------
 
-def align_trainer(seed=0, move_backbone=None):
+def align_trainer(seed=0, move_backbone=None, **opts):
+    """The tiny stage-1 trainer; ``opts``: other AlignConfig settings."""
     import dataclasses as dc
     from refign_tpu_torch.entry import UAWARPC_STAGE1, build_align_trainer
     cfg = dc.replace(UAWARPC_STAGE1, compute_dtype="float32",
-                     crop_after_flow=(64, 64))
+                     crop_after_flow=(64, 64), **opts)
     tr = build_align_trainer(1, "vgg11", cfg=cfg, device="cpu", seed=seed)
     if move_backbone is not None:
         # the frozen weights moved by one ulp in random directions
@@ -477,14 +478,14 @@ def align_batch(B=4, S=80):
     return out
 
 
-def align_steps(steps=1, move_backbone=None, remat=True):
+def align_steps(steps=1, move_backbone=None, remat=True, **opts):
     """UAWarpC steps on the global batch (each rank keeps its rows under a
     group): the logs, the first step's gradients, the
     head's final state, and the all_reduce calls made in the first
-    step."""
+    step.  ``opts``: other AlignConfig settings."""
     from refign_tpu_torch.alignment import trainer as atr
     from refign_tpu_torch.parallel import mesh
-    tr = align_trainer(move_backbone=move_backbone)
+    tr = align_trainer(move_backbone=move_backbone, **opts)
     tr.state.head.remat_modules = remat
     batch = align_batch()
     gen = torch.Generator().manual_seed(9)
@@ -512,6 +513,70 @@ def align_steps(steps=1, move_backbone=None, remat=True):
 def align_case(rank, world):
     return {"remat": align_steps(steps=2),
             "no_remat": align_steps(remat=False)}
+
+
+# ---------------------------------------------------------------------------
+# grouped BatchNorm and the folded UAWarpC step
+# (test_torch_dist_grouped_bn.py)
+# ---------------------------------------------------------------------------
+
+GBN_GROUPS = 3
+
+
+def gbn_inputs():
+    """A global batch of GBN_GROUPS groups of BN_SHAPE each, group-major;
+    each group its own mean and scale."""
+    rng = np.random.RandomState(4)
+    x = np.stack([(rng.randn(*BN_SHAPE) * (1 + g) + g).astype(np.float32)
+                  for g in range(GBN_GROUPS)])
+    w = rng.randn(BN_SHAPE[-1]).astype(np.float32)
+    b = rng.randn(BN_SHAPE[-1]).astype(np.float32)
+    lw = rng.randn(*x.shape).astype(np.float32)
+    return x, w, b, lw
+
+
+def gbn_run(sl, remat=False):
+    """Grouped train-mode BN (behind a conv under remat_call where
+    ``remat``) on rows ``sl`` of every group of the global input, stacked
+    group by group (the folded step's layout on a rank); loss the mean of
+    y * lw over them: output, running statistics and gradients."""
+    from refign_tpu_torch.nn.layers import (TorchBatchNorm, grouped_bn,
+                                            remat_call)
+    from refign_tpu_torch.parallel import mesh
+    xn, w, b, lw = gbn_inputs()
+    rows_ = sl or slice(None)
+    xt = torch.from_numpy(xn[:, rows_]).flatten(0, 1).requires_grad_(True)
+    mod = conv_bn() if remat else TorchBatchNorm(BN_SHAPE[-1]).train()
+    bn = mod.bn if remat else mod
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(w))
+        bn.bias.copy_(torch.from_numpy(b))
+    with mesh.sharded_pass(sl), grouped_bn(mod, GBN_GROUPS):
+        y = remat_call(mod, xt) if remat else mod(xt)
+    (y * torch.from_numpy(lw[:, rows_]).flatten(0, 1)).mean().backward()
+    mesh.reduce_gradients(mod.parameters())
+    return {"y": y.detach(), "mean": bn.running_mean.clone(),
+            "var": bn.running_var.clone(), "dx": xt.grad,
+            **{f"d{n}": p.grad.clone() for n, p in mod.named_parameters()}}
+
+
+FOLD_OPTS = dict(fold_passes=True)
+REMAT_HEAD_OPTS = dict(remat_head=True, remat_head_policy="dots")
+
+
+def grouped_case(rank, world):
+    sl = rows(BN_SHAPE[0], rank, world)
+    out = {"gbn": gbn_run(sl)}
+    counter, undo = count_all_reduce()
+    try:
+        out["gbn_remat"] = gbn_run(sl, remat=True)
+        out["gbn_remat_collectives"] = counter["n"]
+    finally:
+        undo()
+    out["fold"] = align_steps(**FOLD_OPTS)
+    out["serial"] = align_steps()
+    out["remat_head"] = align_steps(**REMAT_HEAD_OPTS)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,7 @@ from ..parallel.mesh import apply_cast, cast_floating, cast_params
 from ..train.optim import MultiStepLR
 from ..uda.dacs import (JitterFactors, color_jitter_bcsh, denorm,
                         draw_jitter_bcsh, gaussian_blur_image, renorm)
+from ..utils.profiling import span
 from .losses import adaptive_loss_weights, multi_scale_flow_loss, wbipath_loss
 from .synthetic_flows import (FlowDraws, batched_composite_flow, draw_flow,
                               draw_elastic_noise)
@@ -397,31 +398,36 @@ def _forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                       ) -> Dict[str, torch.Tensor]:
     cfg, state = trainer.cfg, trainer.state
     cdt = cfg.dtype
-    images_ref = device_normalize(batch["image_ref"], cfg)
-    images_trg = device_normalize(batch["image_trg"], cfg)
-    out_slice = crop_window(cfg, *images_trg.shape[1:3])
-    with torch.no_grad():
-        prime = prepare_alignment_batch(draws, images_ref, images_trg, cfg,
-                                        out_slice=out_slice, noise=noise)
+    with span("align.prime"):
+        images_ref = device_normalize(batch["image_ref"], cfg)
+        images_trg = device_normalize(batch["image_trg"], cfg)
+        out_slice = crop_window(cfg, *images_trg.shape[1:3])
+        with torch.no_grad():
+            prime = prepare_alignment_batch(draws, images_ref, images_trg,
+                                            cfg, out_slice=out_slice,
+                                            noise=noise)
         if out_slice is not None:
             top, left, th, tw = out_slice
             images_ref = images_ref[:, top:top + th, left:left + tw]
             images_trg = images_trg[:, top:top + th, left:left + tw]
-        H, W = images_trg.shape[1:3]
-        pyrs, pyrs256 = extract_pyramids(
-            state.backbone, images_ref.to(cdt), images_trg.to(cdt),
-            prime["image_prime"].to(cdt))
-    pyr_ref, pyr_trg, pyr_prime = pyrs
-    pyr_ref_256, pyr_trg_256, pyr_prime_256 = pyrs256
-    idx = prime["prime_trg_idx"]
-    # i: the image the prime was derived from; j: the other
-    pyr_i = _select(idx, pyr_ref, pyr_trg)
-    pyr_j = _select(1 - idx, pyr_ref, pyr_trg)
-    pyr_i_256 = _select(idx, pyr_ref_256, pyr_trg_256)
-    pyr_j_256 = _select(1 - idx, pyr_ref_256, pyr_trg_256)
+    H, W = images_trg.shape[1:3]
+    with span("align.pyramids"):
+        with torch.no_grad():
+            pyrs, pyrs256 = extract_pyramids(
+                state.backbone, images_ref.to(cdt), images_trg.to(cdt),
+                prime["image_prime"].to(cdt))
+        pyr_ref, pyr_trg, pyr_prime = pyrs
+        pyr_ref_256, pyr_trg_256, pyr_prime_256 = pyrs256
+        idx = prime["prime_trg_idx"]
+        # i: the image the prime was derived from; j: the other
+        pyr_i = _select(idx, pyr_ref, pyr_trg)
+        pyr_j = _select(1 - idx, pyr_ref, pyr_trg)
+        pyr_i_256 = _select(idx, pyr_ref_256, pyr_trg_256)
+        pyr_j_256 = _select(1 - idx, pyr_ref_256, pyr_trg_256)
 
     head = state.head
-    params = None if cdt == torch.float32 else cast_params(head, cdt)
+    with span("align.cast_params"):
+        params = None if cdt == torch.float32 else cast_params(head, cdt)
 
     def head_pass(trg, src, trg256, src256, remat=False):
         # the head maps its first pyramid (target) onto its second
@@ -431,50 +437,55 @@ def _forward_backward(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                               params=params)
         return apply_cast(head, cdt, *args, params=params)
 
-    if cfg.fold_passes:
-        B = idx.shape[0]
+    with span("align.head"):
+        if cfg.fold_passes:
+            B = idx.shape[0]
 
-        def cat3(*levels):
-            return [torch.cat(ts) for ts in zip(*levels)]
+            def cat3(*levels):
+                return [torch.cat(ts) for ts in zip(*levels)]
 
-        with grouped_bn(head, 3):
-            out3 = head_pass(cat3(pyr_prime, pyr_prime, pyr_j),
-                             cat3(pyr_i, pyr_j, pyr_i),
-                             cat3(pyr_prime_256, pyr_prime_256, pyr_j_256),
-                             cat3(pyr_i_256, pyr_j_256, pyr_i_256))
+            with grouped_bn(head, 3):
+                out3 = head_pass(cat3(pyr_prime, pyr_prime, pyr_j),
+                                 cat3(pyr_i, pyr_j, pyr_i),
+                                 cat3(pyr_prime_256, pyr_prime_256,
+                                      pyr_j_256),
+                                 cat3(pyr_i_256, pyr_j_256, pyr_i_256))
 
-        def group(g):
-            sl = slice(g * B, (g + 1) * B)
-            return [tuple(t[sl] for t in lv) if isinstance(lv, tuple)
-                    else lv[sl] for lv in out3]
+            def group(g):
+                sl = slice(g * B, (g + 1) * B)
+                return [tuple(t[sl] for t in lv) if isinstance(lv, tuple)
+                        else lv[sl] for lv in out3]
 
-        prime_i, prime_j, j_i = group(0), group(1), group(2)
-    else:
-        remat = cfg.remat_head
-        prime_i = head_pass(pyr_prime, pyr_i, pyr_prime_256, pyr_i_256,
-                            remat)
-        prime_j = head_pass(pyr_prime, pyr_j, pyr_prime_256, pyr_j_256,
-                            remat)
-        j_i = head_pass(pyr_j, pyr_i, pyr_j_256, pyr_i_256,
-                        remat and not cfg.remat_skip_last)
+            prime_i, prime_j, j_i = group(0), group(1), group(2)
+        else:
+            remat = cfg.remat_head
+            prime_i = head_pass(pyr_prime, pyr_i, pyr_prime_256, pyr_i_256,
+                                remat)
+            prime_j = head_pass(pyr_prime, pyr_j, pyr_prime_256, pyr_j_256,
+                                remat)
+            j_i = head_pass(pyr_j, pyr_i, pyr_j_256, pyr_i_256,
+                            remat and not cfg.remat_skip_last)
 
-    ss = multi_scale_flow_loss(prime_i, prime["flow_prime"],
-                               prime["mask_prime"], loss_type=cfg.loss_type,
-                               level_weights=cfg.level_weights)
-    us = wbipath_loss(prime_j, j_i, prime["flow_prime"], prime["mask_prime"],
-                      loss_type=cfg.loss_type,
-                      level_weights=cfg.level_weights,
-                      visibility_mask=cfg.visibility_mask,
-                      alpha_1=cfg.alpha_1, alpha_2=cfg.alpha_2)
-    # the weights from the global losses: the same on every rank
-    ss_all, us_all = mesh.mean_over_ranks(
-        torch.stack([ss.detach(), us.detach()])).unbind()
-    w_ss, w_us = adaptive_loss_weights(
-        ss_all, us_all, weight_ss=float(cfg.apply_constant_flow_weights))
-    loss = w_ss * ss + w_us * us
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    mesh.reduce_gradients(head.parameters())
+    with span("align.losses"):
+        ss = multi_scale_flow_loss(prime_i, prime["flow_prime"],
+                                   prime["mask_prime"],
+                                   loss_type=cfg.loss_type,
+                                   level_weights=cfg.level_weights)
+        us = wbipath_loss(prime_j, j_i, prime["flow_prime"],
+                          prime["mask_prime"], loss_type=cfg.loss_type,
+                          level_weights=cfg.level_weights,
+                          visibility_mask=cfg.visibility_mask,
+                          alpha_1=cfg.alpha_1, alpha_2=cfg.alpha_2)
+        # the weights from the global losses: the same on every rank
+        ss_all, us_all = mesh.mean_over_ranks(
+            torch.stack([ss.detach(), us.detach()])).unbind()
+        w_ss, w_us = adaptive_loss_weights(
+            ss_all, us_all, weight_ss=float(cfg.apply_constant_flow_weights))
+        loss = w_ss * ss + w_us * us
+    with span("align.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        mesh.reduce_gradients(head.parameters())
     return {"train_matching_loss": mesh.mean_over_ranks(loss.detach()),
             "loss_ss": ss_all, "loss_us": us_all}
 
@@ -484,10 +495,15 @@ def train_step(trainer: AlignTrainer, batch: Dict[str, torch.Tensor],
                ) -> Dict[str, torch.Tensor]:
     """One UAWarpC step in place on ``trainer.state``:
     :func:`forward_backward`, then Adam at the schedule's rate for the
-    update count (the same update on every rank)."""
-    logs = forward_backward(trainer, batch, draws, noise)
-    state = trainer.state
-    state.scheduler.set_step(state.step)
-    state.optimizer.step()
-    state.step += 1
+    update count (the same update on every rank).  Its phases are spans
+    (``utils/profiling.py``): ``align.step`` over ``align.prime``,
+    ``align.pyramids``, ``align.cast_params``, ``align.head``,
+    ``align.losses``, ``align.backward`` and ``align.optimizer``."""
+    with span("align.step"):
+        logs = forward_backward(trainer, batch, draws, noise)
+        state = trainer.state
+        with span("align.optimizer"):
+            state.scheduler.set_step(state.step)
+            state.optimizer.step()
+        state.step += 1
     return logs

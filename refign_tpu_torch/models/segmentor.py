@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops.resize import interpolate
 from ..parallel import mesh
+from ..utils.profiling import span
 
 
 def compute_slide_boxes(img_size: Tuple[int, int],
@@ -211,9 +212,16 @@ def slide_inference(whole_fn: Callable[[torch.Tensor], torch.Tensor],
                     img: torch.Tensor, crop_size: Tuple[int, int],
                     stride: Tuple[int, int]) -> torch.Tensor:
     """Batched sliding-window inference: ``whole_fn`` maps (N, ch, cw, 3)
-    to (N, ch, cw, C) logits; img is (B, H, W, 3)."""
-    B, H, W, _ = img.shape
-    boxes = compute_slide_boxes((H, W), crop_size, stride)
-    crops = torch.cat([img[:, y1:y2, x1:x2] for (y1, y2, x1, x2) in boxes],
-                      dim=0)
-    return fold_crops(whole_fn(crops), boxes, (H, W), B)
+    to (N, ch, cw, C) logits; img is (B, H, W, 3).  Spans
+    (``utils/profiling.py``): ``slide.frame`` over ``slide.crops``,
+    ``slide.forward`` and ``slide.fold``."""
+    with span("slide.frame"):
+        B, H, W, _ = img.shape
+        with span("slide.crops"):
+            boxes = compute_slide_boxes((H, W), crop_size, stride)
+            crops = torch.cat([img[:, y1:y2, x1:x2]
+                               for (y1, y2, x1, x2) in boxes], dim=0)
+        with span("slide.forward"):
+            logits = whole_fn(crops)
+        with span("slide.fold"):
+            return fold_crops(logits, boxes, (H, W), B)

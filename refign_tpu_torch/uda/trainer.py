@@ -59,6 +59,7 @@ from ..ops.warp import confidence_from_logvar, warp
 from ..parallel import mesh
 from ..parallel.mesh import apply_cast, cast_params
 from ..train.optim import WarmupPolyLR
+from ..utils.profiling import span
 from .dacs import DACSDraws, dacs_mix, draw_dacs
 from .losses import pixel_weighted_cross_entropy
 from .refine import fdist_loss, refine
@@ -251,13 +252,16 @@ def _pseudo_probs(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
     logits = teacher_logits(torch.cat([images_trg, images_ref]))
     m_trg, m_ref = logits[:b], logits[b:]
     if cfg.use_align:
-        warped, mask, cert = align_fn(trainer.align_net, m_ref, images_ref,
-                                      images_trg)
-        probs = refine(m_trg, warped, mask, cert, cfg.gamma, cfg.disable_M,
-                       cfg.disable_P)
+        with span("uda.align"):
+            warped, mask, cert = align_fn(trainer.align_net, m_ref,
+                                          images_ref, images_trg)
+        with span("uda.refine"):
+            probs = refine(m_trg, warped, mask, cert, cfg.gamma,
+                           cfg.disable_M, cfg.disable_P)
     else:
-        probs = refine(m_trg, m_ref, None, None, cfg.gamma, cfg.disable_M,
-                       cfg.disable_P)
+        with span("uda.refine"):
+            probs = refine(m_trg, m_ref, None, None, cfg.gamma,
+                           cfg.disable_M, cfg.disable_P)
     return probs, images_trg
 
 
@@ -334,64 +338,73 @@ def forward_backward(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
 
     # prefix: EMA, pseudo-labels, DACS
     with torch.no_grad():
-        ema_update(state.teacher, state.student, state.step,
-                   cfg.ema_momentum)
-        with mesh.sharded_pass(trg_rows):
+        with span("uda.ema"):
+            ema_update(state.teacher, state.student, state.step,
+                       cfg.ema_momentum)
+        with span("uda.pseudo_labels"), mesh.sharded_pass(trg_rows):
             probs_trg, images_trg = _pseudo_probs(trainer, batch,
                                                   draws.use_ref_as_target)
-        mix_src, mix_gt = _mix_sources(batch, rows, trg_rows)
-        mixed_img, mixed_lbl, mixed_weight = dacs_mix(
-            dacs, images_trg, probs_trg, mix_src, mix_gt,
-            pseudo_label_threshold=cfg.pseudo_label_threshold,
-            color_jitter_p=cfg.color_jitter_p, blur=cfg.blur,
-            psweight_ignore_top=cfg.psweight_ignore_top,
-            psweight_ignore_bottom=cfg.psweight_ignore_bottom,
-            num_classes=cfg.num_classes)
+        with span("uda.dacs"):
+            mix_src, mix_gt = _mix_sources(batch, rows, trg_rows)
+            mixed_img, mixed_lbl, mixed_weight = dacs_mix(
+                dacs, images_trg, probs_trg, mix_src, mix_gt,
+                pseudo_label_threshold=cfg.pseudo_label_threshold,
+                color_jitter_p=cfg.color_jitter_p, blur=cfg.blur,
+                psweight_ignore_top=cfg.psweight_ignore_top,
+                psweight_ignore_bottom=cfg.psweight_ignore_bottom,
+                num_classes=cfg.num_classes)
         del probs_trg, mix_src, mix_gt
 
     # core: both student passes, fdist, one backward of the sum
     trainer.dropout_gen.manual_seed(draws.dropout_seed)
-    params = (None if cfg.dtype == torch.float32
-              else cast_params(state.student, cfg.dtype))
+    with span("uda.cast_params"):
+        params = (None if cfg.dtype == torch.float32
+                  else cast_params(state.student, cfg.dtype))
     gt_src = batch["semantic_src"]
     logs = {}
-    with mesh.sharded_pass(src_rows):
-        logits_src, hr_src, feats_src = _student_forward(
-            trainer, params, batch["image_src"], draws.crop_src)
-    loss_src = _seg_loss(cfg, logits_src, hr_src, gt_src, None,
-                         draws.crop_src)
+    with span("uda.student_src"):
+        with mesh.sharded_pass(src_rows):
+            logits_src, hr_src, feats_src = _student_forward(
+                trainer, params, batch["image_src"], draws.crop_src)
+        loss_src = _seg_loss(cfg, logits_src, hr_src, gt_src, None,
+                             draws.crop_src)
     logs["train_loss_src"] = loss_src
     total = loss_src
     del logits_src, hr_src
 
     if cfg.enable_fdist:
-        img = batch["image_src"]
-        if cfg.use_hrda:
-            img = interpolate(img, (img.shape[1] // 2, img.shape[2] // 2),
-                              mode="bilinear", align_corners=False)
-        with torch.no_grad():
-            imnet_feats = apply_cast(state.imnet, cfg.dtype, img.to(cfg.dtype))
-        lfd = fdist_loss(feats_src[-1], imnet_feats[-1], gt_src,
-                         cfg.fdist_classes, cfg.fdist_scale_min_ratio,
-                         cfg.num_classes, cfg.fdist_lambda)
+        with span("uda.fdist"):
+            img = batch["image_src"]
+            if cfg.use_hrda:
+                img = interpolate(img, (img.shape[1] // 2,
+                                        img.shape[2] // 2),
+                                  mode="bilinear", align_corners=False)
+            with torch.no_grad():
+                imnet_feats = apply_cast(state.imnet, cfg.dtype,
+                                         img.to(cfg.dtype))
+            lfd = fdist_loss(feats_src[-1], imnet_feats[-1], gt_src,
+                             cfg.fdist_classes, cfg.fdist_scale_min_ratio,
+                             cfg.num_classes, cfg.fdist_lambda)
         logs["train_loss_featdist_src"] = lfd
         total = total + lfd
         del imnet_feats
     del feats_src
 
-    with mesh.sharded_pass(trg_rows):
-        logits_mix, hr_mix, _ = _student_forward(trainer, params, mixed_img,
-                                                 draws.crop_mix)
-    loss_mix = _seg_loss(cfg, logits_mix, hr_mix, mixed_lbl, mixed_weight,
-                         draws.crop_mix)
+    with span("uda.student_mix"):
+        with mesh.sharded_pass(trg_rows):
+            logits_mix, hr_mix, _ = _student_forward(
+                trainer, params, mixed_img, draws.crop_mix)
+        loss_mix = _seg_loss(cfg, logits_mix, hr_mix, mixed_lbl,
+                             mixed_weight, draws.crop_mix)
     logs["train_loss_uda_trg"] = loss_mix
     logs["train_pseudo_weight"] = mixed_weight.float().mean()
     total = total + loss_mix
     del logits_mix, hr_mix, params
 
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    mesh.reduce_gradients(state.student.parameters())
+    with span("uda.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        mesh.reduce_gradients(state.student.parameters())
     logs["train_loss_total"] = total
     return _global_logs(logs)
 
@@ -409,10 +422,16 @@ def train_step(trainer: UDATrainer, batch: Dict[str, torch.Tensor],
                draws: StepDraws) -> Dict[str, torch.Tensor]:
     """One UDA step in place on ``trainer.state``: :func:`forward_backward`,
     then AdamW at the schedule's rate for the update count (the same
-    update on every rank: the gradients are averaged first)."""
-    logs = forward_backward(trainer, batch, draws)
-    state = trainer.state
-    state.scheduler.set_step(state.step)
-    state.optimizer.step()
-    state.step += 1
+    update on every rank: the gradients are averaged first).  Its phases
+    are spans (``utils/profiling.py``): ``uda.step`` over ``uda.ema``,
+    ``uda.pseudo_labels`` (``uda.align``, ``uda.refine``), ``uda.dacs``,
+    ``uda.cast_params``, ``uda.student_src``, ``uda.fdist``,
+    ``uda.student_mix``, ``uda.backward`` and ``uda.optimizer``."""
+    with span("uda.step"):
+        logs = forward_backward(trainer, batch, draws)
+        state = trainer.state
+        with span("uda.optimizer"):
+            state.scheduler.set_step(state.step)
+            state.optimizer.step()
+        state.step += 1
     return logs

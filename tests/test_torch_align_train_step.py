@@ -22,7 +22,9 @@ then applies Adam.
   and BN statistics;
 * the JAX state after 2 steps carried into a fresh port trainer
   (``load_align_state``: head, backbone, Adam moments and count, step)
-  takes step 3 as the JAX step does.
+  takes step 3 as the JAX step does;
+* a fourth step under the port's ``utils/profiling.Recorder`` records
+  the step's phase spans in order.
 
 The trajectory runs at lr 1e-6 and wd 0.1, as the JAX golden does, and for
 its reason (``tests/test_align_trajectory_golden.py:9-18``): at the
@@ -61,6 +63,7 @@ after three; parameters after the trajectory 8 lr (Adam's early updates
 are ~sign(g) lr, so a sign that rounding flips moves an entry by up to
 2 lr a step).
 """
+import copy
 import statistics
 
 import jax
@@ -87,6 +90,7 @@ from refign_tpu_torch.train.optim import make_adam_optimizer
 from refign_tpu_torch.utils.jax_convert import (load_align_state,
                                                 load_jax_variables,
                                                 params_like)
+from refign_tpu_torch.utils.profiling import Recorder
 
 B, H, W = 2, 64, 64
 LR, WD, MILESTONES = 1e-6, 0.1, (2,)
@@ -393,3 +397,24 @@ def test_resumed_from_jax_state_matches_jax_step(run):
     np.testing.assert_allclose(_sq_norm(resumed.head), run["jax_norms"][-1],
                                rtol=1e-6)
 
+
+
+ALIGN_SPANS = ["align.step", "align.prime", "align.pyramids",
+               "align.cast_params", "align.head", "align.losses",
+               "align.backward", "align.optimizer"]
+
+
+def test_train_step_records_its_phases_in_order(run):
+    """One more step of the trained port trainer, on a copy, under a
+    recorder: exactly the step's spans, every phase a child of
+    ``align.step``, closed in the order they opened."""
+    prime = _prime_np()
+    trainer = copy.deepcopy(run["trainer"])
+    with Recorder() as rec:
+        _with_fixed_prime(prime, lambda: train_step(
+            trainer, _port_batch(prime), None))
+    assert [s.name for s in rec.spans] == ALIGN_SPANS
+    assert [s.parent for s in rec.spans] == [None] + [0] * 7
+    assert {s.step for s in rec.spans} == {0}
+    ends = [s.end_ns for s in rec.spans[1:]]
+    assert ends == sorted(ends) and ends[-1] <= rec.spans[0].end_ns

@@ -198,15 +198,24 @@ TRAIN_STAGES = [  # (launches, tokens N, keys M, heads H, dwconv H=W, hidden C)
     (3, 256, 256, 8, 16, 2048),
 ]
 TRAIN_PASSES = 2
+# K4, the DAFormer head's three dilated depthwise convs (d = 6, 12, 18,
+# 1024 channels): one launch each a head forward; in a slide frame all three
+# with the eval BatchNorm + ReLU epilogue, in the UDA step none (train-mode
+# BatchNorm)
+K4_DILATIONS = (6, 12, 18)
+K4_LAUNCHES_PER_FORWARD = len(K4_DILATIONS)  # 3
+K4_MAP = (30, 135, 135, 1024)  # a slide frame's ASPP input, 30 crops at 1/4
 # launches per step: the forward kernels run in the teacher, the ImageNet
 # copy, both student passes and both recomputes of the remat; the backward
-# kernels in both student backwards; K3 in the align step
+# kernels in both student backwards; K3 in the align step; K4 in the heads
+# of the teacher and of both student passes
 TRAIN_LAUNCHES = {
     "sra_attention": 6 * LAUNCHES_PER_FORWARD,
     "sra_attention_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
     "dwconv3x3_gelu": 6 * LAUNCHES_PER_FORWARD,
     "dwconv3x3_gelu_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
     "local_correlation": 3,
+    "dilated_dwconv3x3": 3 * K4_LAUNCHES_PER_FORWARD,
 }
 
 # UAWarpC local correlation (K3) at the UDA geometry: B=4 1024^2 crops,
@@ -528,7 +537,8 @@ def device_ms(fn, calls=10, expect=None) -> float:
 
 
 def check_close(name, got, ref, rel, abs_):
-    """Elementwise |got - ref| <= rel*|ref| + abs_; returns max abs error."""
+    """Elementwise |got - ref| <= rel*|ref| + abs_ (a number, or a tensor
+    of per-element allowances); returns max abs error."""
     import torch
     got = got.float()
     if got.shape != ref.shape:
@@ -539,9 +549,11 @@ def check_close(name, got, ref, rel, abs_):
     err = (got - ref).abs()
     bad = err > rel * ref.abs() + abs_
     if bad.any():
+        allow = (f"{abs_:g}" if isinstance(abs_, (int, float))
+                 else "its allowance")
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements beyond {rel:g}*|ref| + "
-            f"{abs_:g}; max abs err {err.max().item():.3e}")
+            f"{allow}; max abs err {err.max().item():.3e}")
     return err.max().item()
 
 
@@ -561,6 +573,36 @@ def dwconv_case(gen, B, S, C, dtype):
          ).to(dtype)
     b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
     return x, w, b
+
+
+def k4_affine(gen, C):
+    """The per-channel fp32 a, c of an eval BatchNorm with drawn parameters
+    and statistics, as ``TorchBatchNorm.eval_fold`` computes them."""
+    import torch
+    from refign_tpu_torch.nn.layers import TorchBatchNorm
+    bn = TorchBatchNorm(C).cuda().eval()
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.3 * torch.randn(C, generator=gen,
+                                              device="cuda"))
+        bn.bias.copy_(0.2 * torch.randn(C, generator=gen, device="cuda"))
+        bn.running_mean.copy_(0.3 * torch.randn(C, generator=gen,
+                                                device="cuda"))
+        bn.running_var.copy_(0.5 + torch.rand(C, generator=gen,
+                                              device="cuda"))
+        return bn.eval_fold()
+
+
+def k4_library(x, w, d, affine):
+    """What the model ran before K4: cuDNN's grouped conv on the NHWC
+    map's channels-last view, then (with ``affine``) TorchBatchNorm's bf16
+    arm and ReLU as separate passes."""
+    import torch.nn.functional as F
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, 1, d, d,
+                 x.shape[-1]).permute(0, 2, 3, 1)
+    if affine is None:
+        return y
+    a, c = affine
+    return F.relu((y.float() * a + c).to(x.dtype))
 
 
 def corr_case(gen, B, H, W, C, dtype):
@@ -583,6 +625,8 @@ def phase_kernels():
     from refign_tpu_torch.ops.correlation import (
         local_correlation, local_correlation_reference,
         local_correlation_relu_l2norm, local_correlation_relu_l2norm_reference)
+    from refign_tpu_torch.ops.dilated_dwconv import (
+        dilated_dwconv3x3, dilated_dwconv3x3_reference)
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                              dwconv3x3_gelu_reference)
 
@@ -607,6 +651,14 @@ def phase_kernels():
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
+    def k4_bound(B, H, W, C, itemsize):
+        nbytes = (2 * B * H * W * C + 9 * C) * itemsize
+        flops = B * H * W * C * 20.0  # 9 FMAs, the fold's multiply and add
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / peak_flops(itemsize)
+        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+
     def corr_bound(B, H, W, C, P, itemsize, out_itemsize):
         nbytes = (2 * B * H * W * C * itemsize
                   + B * H * W * P * P * out_itemsize)
@@ -617,7 +669,8 @@ def phase_kernels():
                                            else "operations")
 
     # (name, launches per call of its path, shape, kind, input dtype, K3's
-    # output: None for the raw fp32 volume, else the fused mode's dtype)
+    # output: None for the raw fp32 volume, else the fused mode's dtype;
+    # K4: whether the BatchNorm + ReLU epilogue runs)
     cases = [("sra_attention", n, (B_ROWS, N, M, H), "main", bf16, None)
              for (n, N, M, H, _, _) in STAGES]
     cases += [("sra_attention", 0, (2, 1000, 17, 1), "ragged", bf16, None),
@@ -628,6 +681,12 @@ def phase_kernels():
     cases += [("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", bf16, None),
               ("dwconv3x3_gelu", 0, (2, 33, 40), "ragged", torch.float32,
                None)]
+    # K4 at the slide frame's ASPP: fused, as the frame runs it, and the
+    # conv alone (the UDA step's mode)
+    cases += [("dilated_dwconv3x3", 1, (*K4_MAP, d), "main", bf16, True)
+              for d in K4_DILATIONS]
+    cases += [("dilated_dwconv3x3", 0, (*K4_MAP, d), "conv", bf16, False)
+              for d in K4_DILATIONS]
     # K3: the head launches the fused mode with bf16 output ("main"); the
     # raw mode at the same shapes, off the path, for the kernel alone
     cases += [("local_correlation", 1, (*lvl, CORR_PATCH), "main", bf16, bf16)
@@ -689,6 +748,23 @@ def phase_kernels():
             library = None  # no single PyTorch call computes it
             bound, bound_by = corr_bound(B, H, W, C, P, t.element_size(),
                                          out_itemsize)
+        elif name == "dilated_dwconv3x3":
+            B, H, W, C, d = shape
+            x, w, _ = dwconv_case(gen, B, H, C, dtype)
+            affine = k4_affine(gen, C) if corr_out else None
+            ref = dilated_dwconv3x3_reference(x.float(), w.float(), d)
+            # fused: the conv's own rounding, times a, besides the output's
+            allow = BF16_ABS
+            if affine is not None:
+                a, c = affine
+                allow = BF16_ABS + BF16_REL * (ref * a).abs()
+                ref = F.relu(ref * a + c)
+            got = dilated_dwconv3x3(x, w, d, affine)
+            kernel = lambda: dilated_dwconv3x3(x, w, d, affine)  # noqa: E731
+            plain = lambda: dilated_dwconv3x3_reference(  # noqa: E731
+                x, w, d, affine)
+            library = lambda: k4_library(x, w, d, affine)  # noqa: E731
+            bound, bound_by = k4_bound(B, H, W, C, x.element_size())
         else:
             B, S, C = shape
             x, w, b = dwconv_case(gen, B, S, C, dtype)
@@ -707,11 +783,16 @@ def phase_kernels():
                 raise AssertionError(f"{name}: output {got.dtype}, not {want}")
             err = check_close(f"{name}{shape} {kind}", got, ref,
                               BF16_REL if want == bf16 else 0.0, CORR_ABS)
+        elif name == "dilated_dwconv3x3":
+            err = check_close(f"{name}{shape} {kind}", got, ref, BF16_REL,
+                              allow)
         elif dtype == bf16:
             err = check_close(f"{name}{shape}", got, ref, BF16_REL, BF16_ABS)
         else:
             err = check_close(f"{name}{shape} fp32", got, ref, 0.0, FP32_ABS)
-        mode = ("" if name != "local_correlation" else "raw fp32"
+        mode = ("" if name not in ("local_correlation", "dilated_dwconv3x3")
+                else ("bn+relu" if corr_out else "conv")
+                if name == "dilated_dwconv3x3" else "raw fp32"
                 if corr_out is None else
                 "fused " + str(corr_out).replace("torch.", ""))
         row = dict(name=name, shape=list(shape), kind=kind, mode=mode,
@@ -1127,12 +1208,15 @@ def phase_lab_yardsticks():
 
 
 def plain_versions(enabled: bool):
-    """Test-only switch: route the MiT blocks and the UAWarpC head's local
-    correlations through the kernels' plain versions (enabled) or back
-    through the kernel wrappers."""
+    """Test-only switch: route the MiT blocks, the DAFormer head's dilated
+    depthwise convs and the UAWarpC head's local correlations through the
+    kernels' plain versions (enabled) or back through the kernel
+    wrappers."""
     from refign_tpu_torch.models import mix_transformer as mt
     from refign_tpu_torch.models.heads import uawarpc
-    from refign_tpu_torch.ops import attention, correlation, dwconv
+    from refign_tpu_torch.nn import layers
+    from refign_tpu_torch.ops import (attention, correlation, dilated_dwconv,
+                                      dwconv)
     mt.sra_attention = (attention.sra_attention_reference if enabled
                         else attention.sra_attention)
     mt.dwconv3x3_gelu = (dwconv.dwconv3x3_gelu_reference if enabled
@@ -1140,15 +1224,22 @@ def plain_versions(enabled: bool):
     uawarpc.local_correlation_relu_l2norm = (
         correlation.local_correlation_relu_l2norm_reference if enabled
         else correlation.local_correlation_relu_l2norm)
+    layers.dilated_dwconv3x3 = (
+        dilated_dwconv.dilated_dwconv3x3_reference if enabled
+        else dilated_dwconv.dilated_dwconv3x3)
 
 
 def phase_main_path(card):
     import torch
     from refign_tpu_torch.entry import build_hrda_star, hrda_slide_forward
     from refign_tpu_torch.ops.attention import sra_attention
+    from refign_tpu_torch.ops.dilated_dwconv import dilated_dwconv3x3
     from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu
 
-    counted = (sra_attention, dwconv3x3_gelu)
+    counted = (sra_attention, dwconv3x3_gelu, dilated_dwconv3x3)
+    per_forward = {"sra_attention": LAUNCHES_PER_FORWARD,
+                   "dwconv3x3_gelu": LAUNCHES_PER_FORWARD,
+                   "dilated_dwconv3x3": K4_LAUNCHES_PER_FORWARD}
 
     # small fp32 model first: kernels against plain versions, tightly
     small = build_hrda_star("mit_b1", dtype=torch.float32, device="cuda",
@@ -1179,14 +1270,20 @@ def phase_main_path(card):
 
     for f in counted:
         f.launches = 0
+    dilated_dwconv3x3.fused = 0
     out = hrda_slide_forward(model, img)
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in counted}
-    log(f"  launches in one forward: {launches}")
+    fused = dilated_dwconv3x3.fused
+    log(f"  launches in one forward: {launches}; K4's with the BatchNorm + "
+        f"ReLU epilogue: {fused}")
     for name, n in launches.items():
-        if n != LAUNCHES_PER_FORWARD:
+        if n != per_forward[name]:
             raise AssertionError(f"{name} launched {n} times, expected "
-                                 f"{LAUNCHES_PER_FORWARD}")
+                                 f"{per_forward[name]}")
+    if fused != K4_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"{fused} of K4's launches fused, expected "
+                             f"{K4_LAUNCHES_PER_FORWARD}")
     if tuple(out.shape) != (1, 1080, 1920, 19):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if out.dtype != torch.bfloat16 or not torch.isfinite(out).all():
@@ -1598,6 +1695,7 @@ def phase_train(card):
     from refign_tpu_torch.ops.attention import (sra_attention,
                                                 sra_attention_backward)
     from refign_tpu_torch.ops.correlation import local_correlation as k3
+    from refign_tpu_torch.ops.dilated_dwconv import dilated_dwconv3x3
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                              dwconv3x3_gelu_backward)
     from refign_tpu_torch.uda.trainer import draw_step, train_step
@@ -1606,7 +1704,8 @@ def phase_train(card):
                "sra_attention_backward": sra_attention_backward,
                "dwconv3x3_gelu": dwconv3x3_gelu,
                "dwconv3x3_gelu_backward": dwconv3x3_gelu_backward,
-               "local_correlation": k3}
+               "local_correlation": k3,
+               "dilated_dwconv3x3": dilated_dwconv3x3}
 
     # small fp32 model first: kernels against plain versions, tightly.
     # mit_b1 (MiT-B5's widths and heads at depth 2): K1 takes head dim 64,
@@ -1640,14 +1739,19 @@ def phase_train(card):
     draws.use_ref_as_target = False
     for f in counted.values():
         f.launches = 0
+    dilated_dwconv3x3.fused = 0
     logs = train_step(trainer, batch, draws)
     torch.cuda.synchronize()
     launches = {n: f.launches for n, f in counted.items()}
-    log(f"  launches in one train step: {launches}")
+    log(f"  launches in one train step: {launches}; K4's with the BatchNorm "
+        f"+ ReLU epilogue: {dilated_dwconv3x3.fused}")
     for name, n in launches.items():
         if n != TRAIN_LAUNCHES[name]:
             raise AssertionError(f"{name} launched {n} times in a train "
                                  f"step, expected {TRAIN_LAUNCHES[name]}")
+    if dilated_dwconv3x3.fused:
+        raise AssertionError(f"{dilated_dwconv3x3.fused} of K4's launches "
+                             f"fused in a train step, expected none")
 
     all_logs = [logs]
     uda_train_step(trainer, batch, gen)  # warm-up
@@ -3486,6 +3590,7 @@ KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
     ("K3 backward", ("::graw_kernel<", "::grad_kernel<",
                      "::raw_grad_kernel<", "::input_grad_kernel<")),
     ("K3 local_correlation", ("local_correlation",)),
+    ("K4 dilated_dwconv", ("dilated_dwconv_fwd_kernel",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
     # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
@@ -3655,7 +3760,10 @@ def main() -> int:
                    "refign_tpu/ops/dwconv.py:162"),
                "local_correlation_backward": (
                    "refign_tpu_torch/csrc/local_correlation_backward.cu",
-                   "refign_tpu/ops/correlation.py:135")}
+                   "refign_tpu/ops/correlation.py:135"),
+               # no TPU kernel: the JAX package leaves this conv to XLA
+               "dilated_dwconv3x3": (
+                   "refign_tpu_torch/csrc/dilated_dwconv.cu", None)}
     kernels = []
     for name, (src, replaces) in sources.items():
         main_rows = [r for r in rows if r["name"] == name
@@ -3672,10 +3780,11 @@ def main() -> int:
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
             launches_train_step=train_launches[name],
-            launches_align_train_step=align_launches[name],
-            launches_align_train_step_folded=folded_launches[name],
-            launches_deeplabv2_step=dl_launches[name],
-            launches_cli_fit=rt_launches[name],
+            # None: the phase does not count the kernel
+            launches_align_train_step=align_launches.get(name),
+            launches_align_train_step_folded=folded_launches.get(name),
+            launches_deeplabv2_step=dl_launches.get(name),
+            launches_cli_fit=rt_launches.get(name),
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
             ms=ms, plain_ms=per_call("plain_ms"), bound_ms=bound,
@@ -3683,9 +3792,9 @@ def main() -> int:
                       else "bytes"),
             library_ms=per_call("library_ms"), bound_share=bound / ms))
     log("kernel times are per call of each kernel's path: K1 and K2 summed "
-        "over their 52 launches in one 1080x1920 HRDA* forward "
-        f"({1.0 / sec:.3f} images/s), K3 over its 3 launches in one B=4 "
-        f"1024^2 align and refine ({align_sec * 1e3:.1f} ms), K1 and K2 "
+        "over their 52 launches and K4 over its 3 fused ones in one "
+        f"1080x1920 HRDA* forward ({1.0 / sec:.3f} images/s), K3 over its "
+        f"3 launches in one B=4 1024^2 align and refine ({align_sec * 1e3:.1f} ms), K1 and K2 "
         "backward (device time) over their 104 launches in one B=4 1024^2 "
         "train step "
         f"({train_sec * 1e3:.1f} ms, peak memory {peak:.1f} GiB)")
@@ -3755,7 +3864,8 @@ def main() -> int:
         f"({100 * raw_bound / raw_ms:.1f} % of it)")
     libs = {"sra_attention": "SDPA", "dwconv3x3_gelu": "cuDNN conv + gelu",
             "sra_attention_backward": "SDPA forward + backward",
-            "dwconv3x3_gelu_backward": "cuDNN conv + gelu backward"}
+            "dwconv3x3_gelu_backward": "cuDNN conv + gelu backward",
+            "dilated_dwconv3x3": "cuDNN grouped conv + BatchNorm chain"}
     for k in kernels:
         lib = libs.get(k["name"])
         first = FIRST_BACKWARD_STEP_MS.get(k["name"])

@@ -10,7 +10,8 @@
 // against 3.35 TB/s, so the least time is (input + output bytes) / 3.35 TB/s:
 // 3.19 ms per HRDA* forward (52 launches, bf16).
 //
-// bf16 with C % 8 == 0 (the HRDA* path): a shared-memory halo tile.
+// bf16 with C % 8 == 0 (the HRDA* path): a shared-memory halo tile, whose
+// staging and strip walk K4 shares (dwconv_tile.cuh).
 //  * One block per (64-channel slice, TH x TW pixel tile, image), slices
 //    varying fastest so blocks that run together read whole pixels; TW <= 32
 //    (a multiple of 4, so 8 * TW threads fill whole warps) and TH <= 16 are
@@ -46,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dwconv_tile.cuh"
+
 namespace {
 
 __device__ __forceinline__ float gelu(float z) {
@@ -61,52 +64,10 @@ struct WStrides {
 
 namespace tile {
 
-constexpr int SLICE = 64;            // channels per block
-constexpr int VECS = SLICE / 8;      // 16-byte vectors per staged pixel slice
-constexpr int CPT = 8;               // channels per thread
-constexpr int LANES = SLICE / CPT;   // threads per pixel
-constexpr int MAX_TW = 32, MAX_TH = 16;
-constexpr int MAX_THREADS = LANES * MAX_TW;
+using namespace dwtile;
+
 constexpr int PARAM_BYTES = 10 * SLICE * 4;  // 9 taps + bias, fp32
 constexpr int MAX_SMEM = PARAM_BYTES + (MAX_TH + 2) * (MAX_TW + 2) * SLICE * 2;
-
-using Vec = uint4;  // one thread's 8 bf16 channels
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void unpack(const Vec& u, float (&r)[CPT]) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < CPT / 2; ++i) {
-    r[2 * i] = __uint_as_float(w[i] << 16);
-    r[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// Staged row s of the strip: it is tap row 2 of output row s-2 (fin), tap
-// row 1 of s-1 (mid) and tap row 0 of s (fresh, which starts here at 0).
-__device__ __forceinline__ void row_step(const Vec* __restrict__ src, const float (&wr)[9][CPT],
-                                         float (&fin)[CPT], float (&mid)[CPT],
-                                         float (&fresh)[CPT]) {
-#pragma unroll
-  for (int e = 0; e < CPT; ++e) fresh[e] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    float xv[CPT];
-    unpack(src[j * LANES], xv);
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) {
-      fresh[e] = fmaf(xv[e], wr[j][e], fresh[e]);
-      mid[e] = fmaf(xv[e], wr[3 + j][e], mid[e]);
-      fin[e] = fmaf(xv[e], wr[6 + j][e], fin[e]);
-    }
-  }
-}
 
 __device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&acc)[CPT],
                                           const float* __restrict__ bias) {
@@ -120,49 +81,6 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&acc)
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<Vec*>(dst) = u;
-}
-
-// Stage the (TH+2) x (TW+2) x SLICE halo of the tile at (y0, x0) into
-// `halo`, one cp.async group.  Each thread keeps one (column, 16-byte vector)
-// and walks down its rows, so the addresses need no division.
-__device__ __forceinline__ void stage_halo(uint4* halo, const __nv_bfloat16* __restrict__ xi,
-                                           int H, int W, int C, int cs, int y0, int x0, int TH,
-                                           int SW) {
-  for (int i = threadIdx.x; i < SW * VECS; i += blockDim.x) {
-    const int gx = x0 + (i >> 3) - 1, ch = cs + (i & 7) * 8;
-    const bool okx = (unsigned)gx < (unsigned)W && ch < C;
-    const __nv_bfloat16* src = xi + ((y0 - 1) * W + gx) * C + ch;
-    for (int r = 0, gy = y0 - 1; r < TH + 2; ++r, ++gy, src += W * C) {
-      const bool ok = okx && (unsigned)gy < (unsigned)H;
-      cp_async16(halo + r * SW * VECS + i, ok ? src : xi, ok);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// One thread's column strip of `rows` output rows from the staged halo.
-__device__ __forceinline__ void conv_strip(const Vec* __restrict__ src, int drow_s,
-                                           __nv_bfloat16* dst, int drow, int rows,
-                                           const float (&wr)[9][CPT],
-                                           const float* __restrict__ bsm) {
-  float a0[CPT], a1[CPT], a2[CPT];
-#pragma unroll
-  for (int e = 0; e < CPT; ++e) a0[e] = a1[e] = a2[e] = 0.f;
-  // staged rows 0..rows+1; accumulator names rotate every row, so the loop
-  // is unrolled by three.  Staged row s completes output row s-2.
-  row_step(src, wr, a0, a1, a2);
-  row_step(src + drow_s, wr, a1, a2, a0);
-  src += 2 * drow_s;
-  for (int s = 2; s < rows + 2; s += 3, src += 3 * drow_s, dst += 3 * drow) {
-    row_step(src, wr, a2, a0, a1);
-    store_row(dst, a2, bsm);
-    if (s + 1 >= rows + 2) break;
-    row_step(src + drow_s, wr, a0, a1, a2);
-    store_row(dst + drow, a0, bsm);
-    if (s + 2 >= rows + 2) break;
-    row_step(src + 2 * drow_s, wr, a1, a2, a0);
-    store_row(dst + 2 * drow, a1, bsm);
-  }
 }
 
 // Block (slice, tile, image): stage the halo and the slice's weights, then
@@ -181,7 +99,7 @@ dwconv3x3_gelu_kernel_tile(const __nv_bfloat16* __restrict__ x, const __nv_bfloa
   const size_t img = (size_t)blockIdx.z * H * W * C;
   const int SW = TW + 2;
 
-  stage_halo(halo, x + img, H, W, C, cs, y0, x0, TH, SW);
+  stage_halo(halo, x + img, H, W, C, 1, cs, y0 - 1, x0 - 1, TH, SW);
   // a thread per channel stages its 9 taps and bias as fp32 (a block of a
   // map narrower than 8 pixels has fewer threads than channels)
   for (int cc = tid; cc < SLICE; cc += blockDim.x) {
@@ -201,19 +119,11 @@ dwconv3x3_gelu_kernel_tile(const __nv_bfloat16* __restrict__ x, const __nv_bfloa
   const int c0 = cs + lane * CPT, gx = x0 + col;
   if (c0 >= C || gx >= W) return;
   float wr[9][CPT];
-#pragma unroll
-  for (int t = 0; t < 9; ++t)
-#pragma unroll
-    for (int e = 0; e < CPT; e += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(wsm + t * SLICE + lane * CPT + e);
-      wr[t][e] = a.x;
-      wr[t][e + 1] = a.y;
-      wr[t][e + 2] = a.z;
-      wr[t][e + 3] = a.w;
-    }
+  load_taps(wsm + lane * CPT, wr);
+  const float* bsm = wsm + 9 * SLICE + lane * CPT;
   conv_strip(reinterpret_cast<const Vec*>(halo) + col * LANES + lane, SW * LANES,
-             y + img + (y0 * W + gx) * C + c0, W * C, min(TH, H - y0), wr,
-             wsm + 9 * SLICE + lane * CPT);
+             y + img + (y0 * W + gx) * C + c0, (size_t)W * C, min(TH, H - y0), wr,
+             [bsm](__nv_bfloat16* dst, const float (&acc)[CPT]) { store_row(dst, acc, bsm); });
 }
 
 }  // namespace tile
@@ -224,63 +134,7 @@ namespace direct {
 
 constexpr int NT = 256;
 
-template <int VEC>
-__device__ __forceinline__ void loadv(const float* p, float (&r)[VEC]) {
-  if constexpr (VEC == 8) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
-    r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) r[e] = p[e];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float (&r)[VEC]) {
-  if constexpr (VEC == 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      r[2 * i] = f.x;
-      r[2 * i + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) r[e] = __bfloat162float(p[e]);
-  }
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <int VEC>
-__device__ __forceinline__ void storev(float* p, const float (&r)[VEC]) {
-  if constexpr (VEC == 8) {
-    reinterpret_cast<float4*>(p)[0] = make_float4(r[0], r[1], r[2], r[3]);
-    reinterpret_cast<float4*>(p)[1] = make_float4(r[4], r[5], r[6], r[7]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) p[e] = r[e];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void storev(__nv_bfloat16* p, const float (&r)[VEC]) {
-  if constexpr (VEC == 8) {
-    uint4 u;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  } else {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) p[e] = __float2bfloat16(r[e]);
-  }
-}
+using namespace dwtile;
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(NT)
@@ -322,6 +176,8 @@ dwconv3x3_gelu_kernel_direct(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace direct
 
+using dwtile::tile_size;
+
 template <typename T>
 int launch_direct(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
                   int C, WStrides ws, cudaStream_t stream) {
@@ -339,12 +195,6 @@ int launch_direct(const void* x, const void* w, const void* b, void* y, int B, i
     direct::dwconv3x3_gelu_kernel_direct<T, 1>
         <<<blocks, direct::NT, 0, stream>>>(xs, wp, bs, ys, B, H, W, C, ws);
   return (int)cudaGetLastError();
-}
-
-// near-equal tiles of at most `max_t`: 135 -> 27 (of 32), 68 -> 14 (of 16)
-int tile_size(int n, int max_t) {
-  const int tiles = (n + max_t - 1) / max_t;
-  return (n + tiles - 1) / tiles;
 }
 
 int launch_tile(const void* x, const void* w, const void* b, void* y, int B, int H, int W,

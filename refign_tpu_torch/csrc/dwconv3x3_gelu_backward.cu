@@ -64,6 +64,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dwconv_tile.cuh"
+
 namespace {
 
 constexpr int CH = 32;      // channels per block of dx_dwdb
@@ -215,21 +217,8 @@ __host__ __device__ __forceinline__ int smem_bytes(int TH, int TW) {
   return 16 * (PARAM_VECS + x_vecs(TH, TW) + 2 * (TH + 2) * (TW + 2) * LV);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&r)[8]) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    r[2 * i] = __uint_as_float(w[i] << 16);
-    r[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
+using dwtile::cp_async16;
+using dwtile::unpack;
 
 // Block (slice, tile, image): dx over the tile and the tile's partial of dw and db.
 __global__ void __launch_bounds__(NT, 3)

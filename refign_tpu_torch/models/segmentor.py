@@ -28,9 +28,9 @@ them on other parameters.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -60,20 +60,33 @@ def compute_slide_boxes(img_size: Tuple[int, int],
     return boxes
 
 
+@functools.lru_cache(maxsize=16)
+def _visit_counts(boxes: Tuple[Tuple[int, int, int, int], ...],
+                  img_size: Tuple[int, int], device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The (1, H, W, 1) visit-count matrix of a box grid, built once on the
+    device (an ordinary tensor even under inference mode)."""
+    with torch.inference_mode(False):
+        count = torch.zeros((1, *img_size, 1), dtype=torch.float32,
+                            device=device)
+        for (y1, y2, x1, x2) in boxes:
+            count[:, y1:y2, x1:x2, :] += 1.0
+        return count.to(dtype)
+
+
 def fold_crops(crop_logits: torch.Tensor, boxes, img_size: Tuple[int, int],
                batch: int) -> torch.Tensor:
     """Add per-crop logits (n_crops*B, ch, cw, C), crop-major, back onto the
     full grid and average by visit count.  The count matrix depends only on
-    the box grid and is built on the host."""
+    the box grid: it is built once per grid on the device and kept, so a
+    call copies nothing from the host and waits for nothing."""
     h_img, w_img = img_size
     C = crop_logits.shape[-1]
     preds = crop_logits.new_zeros((batch, h_img, w_img, C))
-    count = np.zeros((1, h_img, w_img, 1), np.float32)
-    for (y1, y2, x1, x2) in boxes:
-        count[:, y1:y2, x1:x2, :] += 1.0
     for i, (y1, y2, x1, x2) in enumerate(boxes):
         preds[:, y1:y2, x1:x2, :] += crop_logits[i * batch:(i + 1) * batch]
-    return preds / torch.from_numpy(count).to(preds.device, preds.dtype)
+    return preds / _visit_counts(tuple(map(tuple, boxes)),
+                                 (h_img, w_img), preds.device, preds.dtype)
 
 
 class Segmentor(nn.Module):

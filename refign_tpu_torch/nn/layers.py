@@ -50,6 +50,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..ops.dilated_dwconv import dilated_dwconv3x3
 from ..parallel import mesh
 
 __all__ = [
@@ -228,6 +229,18 @@ class TorchBatchNorm(nn.Module):
                 self.running_var.copy_(ra_v)
         return mean, var
 
+    def _fold(self, mean: torch.Tensor, var: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bf16 arm's per-channel fp32 ``a``, ``c`` of ``x*a + c``."""
+        a = self.weight.float() * torch.rsqrt(var + self.eps)
+        return a, self.bias.float() - mean * a
+
+    def eval_fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``a``, ``c`` of the eval-mode bf16 arm, for a kernel that
+        applies them itself (``ops.dilated_dwconv``)."""
+        return self._fold(self.running_mean.float(),
+                          self.running_var.float())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         G = self.groups if self.training else 1
@@ -244,12 +257,12 @@ class TorchBatchNorm(nn.Module):
         else:
             mean = self.running_mean.float()
             var = self.running_var.float()
-        w = self.weight.float()
-        b = self.bias.float()
         if x.dtype == torch.bfloat16:
-            a = w * torch.rsqrt(var + self.eps)
-            y = x32 * a + (b - mean * a)
+            a, c = self._fold(mean, var)
+            y = x32 * a + c
         else:
+            w = self.weight.float()
+            b = self.bias.float()
             y = (x32 - mean) * torch.rsqrt(var + self.eps) * w + b
         return (y if G == 1 else y.flatten(0, 1)).to(x.dtype)
 
@@ -344,7 +357,13 @@ def init_convs_kaiming_fanout_(module: nn.Module,
 class ConvBNReLU(nn.Module):
     """conv (+ BN) (+ activation), with the depthwise-separable option
     (``refign_tpu/nn/layers.py:394-448``).  Padding defaults to
-    ``dilation*(kernel_size-1)//2``; bias 'auto' means bias iff no norm."""
+    ``dilation*(kernel_size-1)//2``; bias 'auto' means bias iff no norm.
+
+    A depthwise 3x3 conv with stride 1, padding = dilation and no bias runs
+    through ``ops.dilated_dwconv`` (K4 on the card), which also applies an
+    eval-mode BatchNorm and ReLU where no gradient flows and x is bf16;
+    elsewhere the BatchNorm and activation follow the conv as they do for
+    every other conv."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, dilation: int = 1,
@@ -374,11 +393,35 @@ class ConvBNReLU(nn.Module):
         self.conv = conv2d(in_channels, out_channels, kernel_size, stride,
                            padding, dilation, groups, use_bias)
         self.bn = TorchBatchNorm(out_channels) if use_norm else None
+        # a depthwise 3x3, stride 1, "same" padding and no bias (the
+        # DAFormer ASPP's dilated branches) runs on K4
+        self.dilated_dw = (groups == in_channels == out_channels
+                           and kernel_size == 3 and stride == 1
+                           and padding == dilation and not use_bias)
+
+    def _fuses_bn_relu(self, x: torch.Tensor) -> bool:
+        """K4 applies the BatchNorm and ReLU itself where the BatchNorm
+        is in eval mode on bf16 (its x*a + c arm), the activation is ReLU
+        and no gradient flows."""
+        if (self.bn is None or self.bn.training
+                or self.activation is not F.relu
+                or x.dtype != torch.bfloat16):
+            return False
+        return not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, self.conv.weight, self.bn.weight,
+                                      self.bn.bias)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.depthwise_separable:
             return self.pointwise_conv(self.depthwise_conv(x))
-        x = self.conv(x)
+        if self.dilated_dw:
+            d = self.conv.dilation[0]
+            if self._fuses_bn_relu(x):
+                return dilated_dwconv3x3(x, self.conv.weight, d,
+                                         self.bn.eval_fold())
+            x = dilated_dwconv3x3(x, self.conv.weight, d)
+        else:
+            x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         if self.activation is not None:

@@ -20,7 +20,13 @@ misaligned maps, within 3e-5 of each gradient's largest |ref| (fp32 sums
 over many terms in another order), plus 2^-8*|ref| in bf16; K1's
 grad-mode statistics (its log-sum-exp against torch.logsumexp within
 1e-5 relative), the inference launch without them, identical bits from
-two backward calls, and no fp32 g' map on K2's bf16 backward.  Tolerances: a bf16
+two backward calls, and no fp32 g' map on K2's bf16 backward.  K4 (the
+dilated depthwise conv) at the slide and UDA shapes of the ASPP against
+the plain version and cuDNN's fp32 conv, over ragged class grids, channel
+slices and the direct loop; its BatchNorm + ReLU epilogue bit for bit
+against the conv + TorchBatchNorm + F.relu; its backward (aten's
+convolution_backward) against F.conv2d's; its launch counts in one slide
+frame (3 fused) and one UDA head forward (3 unfused).  Tolerances: a bf16
 kernel output within 2^-8*|ref| + 1e-4 of the fp32 plain version on the
 same inputs (one bf16 rounding plus summation order); fp32 within 1e-5;
 K3 (fp32 sums of unit-norm features) within 1e-5, and its fused bf16
@@ -30,6 +36,7 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from refign_tpu_torch import full_fp32_precision
 from refign_tpu_torch.ops import _build
@@ -43,6 +50,8 @@ from refign_tpu_torch.ops.correlation import (
 from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                          dwconv3x3_gelu_backward,
                                          dwconv3x3_gelu_reference)
+from refign_tpu_torch.ops.dilated_dwconv import (
+    dilated_dwconv3x3, dilated_dwconv3x3_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -776,3 +785,180 @@ def test_deeplabv2_uda_step_launches_k3_three_times(gen):
     torch.cuda.synchronize()
     assert [f.launches for f in counters] == [0, 0, 0, 0, 3, 0]
     assert all(torch.isfinite(v) for v in logs.values())
+
+
+# --------------------------------------------------------------------- K4
+
+def _k4_inputs(gen, B, H, W, C, dtype):
+    x = torch.randn(B, H, W, C, generator=gen, device="cuda").to(dtype)
+    w = (0.3 * torch.randn(C, 1, 3, 3, generator=gen, device="cuda")
+         ).to(dtype)
+    return x, w
+
+
+def _k4_bn(gen, C):
+    """An eval TorchBatchNorm on the card with drawn parameters and
+    statistics (bf16 parameters, fp32 statistics, as the HRDA* model)."""
+    from refign_tpu_torch.nn.layers import TorchBatchNorm
+    bn = TorchBatchNorm(C)
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.3 * torch.randn(C, generator=gen,
+                                              device="cuda"))
+        bn.bias.copy_(0.2 * torch.randn(C, generator=gen, device="cuda"))
+        bn.running_mean.copy_(0.3 * torch.randn(C, generator=gen,
+                                                device="cuda"))
+        bn.running_var.copy_(0.5 + torch.rand(C, generator=gen,
+                                              device="cuda"))
+    bn = bn.cuda().eval().requires_grad_(False)
+    bn.weight.data = bn.weight.data.bfloat16()
+    bn.bias.data = bn.bias.data.bfloat16()
+    return bn
+
+
+@pytest.mark.parametrize("d", [6, 12, 18])
+@pytest.mark.parametrize("B,H,W", [(30, 135, 135), (4, 128, 128)])
+def test_dilated_dwconv_kernel_main_path(gen, B, H, W, d):
+    """The slide frame's and the UDA head's ASPP convs (1024 channels):
+    one launch, within one bf16 rounding of cuDNN's fp32 conv (TF32 off),
+    and of the plain version (cuDNN fp32, cast to bf16) within two."""
+    x, w = _k4_inputs(gen, B, H, W, 1024, torch.bfloat16)
+    before = dilated_dwconv3x3.launches
+    got = dilated_dwconv3x3(x, w, d)
+    assert dilated_dwconv3x3.launches == before + 1
+    ref = dilated_dwconv3x3_reference(x.float(), w.float(), d)
+    _close(got, ref, torch.bfloat16)
+    plain = dilated_dwconv3x3_reference(x, w, d)
+    err = (got.float() - plain.float()).abs()
+    assert (err <= 2.0 ** -7 * ref.abs() + 1e-4).all(), err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,d", [
+    (1, 1, 1, 8, 6), (2, 17, 17, 64, 1), (2, 34, 21, 40, 6),
+    (2, 40, 40, 72, 12), (1, 7, 30, 13, 18), (2, 33, 65, 64, 25),
+    (1, 135, 135, 128, 18), (1, 9, 300, 16, 2)])
+def test_dilated_dwconv_kernel_matches_plain(gen, dtype, B, H, W, C, d):
+    """Ragged class grids, channel counts ragged around the 64-channel
+    slice, C not a multiple of 8 (the direct loop), d beyond the map."""
+    x, w = _k4_inputs(gen, B, H, W, C, dtype)
+    got = dilated_dwconv3x3(x, w, d)
+    _close(got, dilated_dwconv3x3_reference(x.float(), w.float(), d), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dilated_dwconv_kernel_misaligned_and_strided_weight(gen, dtype):
+    """x one element past a 16-byte boundary (the direct loop) and a
+    weight read through its strides (a transposed copy's view)."""
+    B, H, W, C = 2, 30, 31, 64
+    buf = torch.randn(B * H * W * C + 1, generator=gen,
+                      device="cuda").to(dtype)
+    x = buf[1:].view(B, H, W, C)
+    w = (0.3 * torch.randn(3, 3, 1, C, generator=gen, device="cuda")
+         ).to(dtype).permute(3, 2, 0, 1)
+    assert not w.is_contiguous()
+    got = dilated_dwconv3x3(x, w, 6)
+    _close(got, dilated_dwconv3x3_reference(x.float(), w.float(), 6), dtype)
+    assert torch.equal(got, dilated_dwconv3x3(x.clone(), w.contiguous(), 6))
+
+
+@pytest.mark.parametrize("B,H,W,C,d", [(30, 135, 135, 1024, 12),
+                                       (2, 34, 21, 40, 6), (1, 7, 30, 13, 1)])
+def test_dilated_dwconv_fused_is_conv_bn_relu(gen, B, H, W, C, d):
+    """Mode (b) equals mode (a) + TorchBatchNorm (eval, bf16) + F.relu
+    bit for bit: the tile (the first two shapes) and the direct loop."""
+    dtype = torch.bfloat16
+    x, w = _k4_inputs(gen, B, H, W, C, dtype)
+    bn = _k4_bn(gen, C)
+    a, c = bn.eval_fold()
+    before = (dilated_dwconv3x3.launches, dilated_dwconv3x3.fused)
+    got = dilated_dwconv3x3(x, w, d, (a, c))
+    assert (dilated_dwconv3x3.launches, dilated_dwconv3x3.fused) == (
+        before[0] + 1, before[1] + 1)
+    want = F.relu(bn(dilated_dwconv3x3(x, w, d)))
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_dilated_dwconv_launches_once_without_copies(gen, fused):
+    """One call is one launch of K4 and nothing else on the card, under a
+    name no benchmark kernel pattern matches."""
+    x, w = _k4_inputs(gen, 4, 64, 64, 256, torch.bfloat16)
+    affine = _k4_bn(gen, 256).eval_fold() if fused else None
+    dilated_dwconv3x3(x, w, 6, affine)  # build and load outside the window
+    torch.cuda.synchronize()
+    names = _device_kernels(lambda: dilated_dwconv3x3(x, w, 6, affine))
+    assert len(names) == 1 and "dilated_dwconv_fwd_kernel" in names[0], names
+    for pattern in ("dwconv3x3_gelu_kernel", "dwconv_bwd_", "::grad_kernel<",
+                    "::graw_kernel<", "::raw_grad_kernel<",
+                    "::input_grad_kernel<", "sra_attention_kernel",
+                    "attn_bwd_", "local_correlation"):
+        assert pattern not in names[0]
+
+
+def test_dilated_dwconv_backward_is_conv2d_backward(gen):
+    """Inputs that require grad: K4 forward, aten's convolution_backward,
+    the gradients of F.conv2d's autograd for the same output gradient."""
+    x, w = _k4_inputs(gen, 4, 64, 64, 256, torch.bfloat16)
+    x.requires_grad_()
+    w.requires_grad_()
+    g = torch.randn(4, 64, 64, 256, generator=gen, device="cuda").bfloat16()
+    before = dilated_dwconv3x3.launches
+    y = dilated_dwconv3x3(x, w, 12)
+    assert dilated_dwconv3x3.launches == before + 1
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    yr = F.conv2d(x.permute(0, 3, 1, 2), w, None, 1, 12, 12, 256)
+    rx, rw = torch.autograd.grad(yr.permute(0, 2, 3, 1), (x, w), g)
+    assert dx.dtype == x.dtype and dx.shape == x.shape
+    assert dw.dtype == w.dtype and dw.shape == w.shape
+    for got, ref in ((dx, rx), (dw, rw)):
+        err = (got.float() - ref.float()).abs()
+        assert (err <= 2.0 ** -7 * ref.float().abs() + 1e-3).all(), err.max()
+
+
+def test_dilated_dwconv_refusals(gen):
+    x, w = _k4_inputs(gen, 1, 8, 9, 16, torch.float16)
+    with pytest.raises(TypeError):
+        dilated_dwconv3x3(x, w, 2)  # fp16
+    x, w = _k4_inputs(gen, 1, 8, 9, 16, torch.bfloat16)
+    with pytest.raises(ValueError):  # not NHWC-contiguous
+        dilated_dwconv3x3(x.permute(0, 2, 1, 3), w, 2)
+    with pytest.raises(ValueError):  # the grad path takes the same checks
+        dilated_dwconv3x3(x[:, :, ::2].requires_grad_(), w, 2)
+    with pytest.raises(TypeError):
+        dilated_dwconv3x3(x, w.float(), 2)
+    a = torch.ones(16, device="cuda")
+    with pytest.raises(ValueError):  # the epilogue takes bf16 alone
+        dilated_dwconv3x3(x.float(), w.float(), 2, (a, a))
+
+
+def test_dilated_dwconv_counts_slide_frame_and_uda_head(gen):
+    """One 1080x1920 HRDA* slide frame (eval BatchNorm, bf16, inference):
+    3 launches, all fused.  One UDA head forward (train-mode BatchNorm,
+    bf16 parameters that require grad): 3 launches, none fused, and its
+    backward runs."""
+    from refign_tpu_torch.entry import build_hrda_star, hrda_slide_forward
+    from refign_tpu_torch.models.heads.daformer import DAFormerHead
+    from refign_tpu_torch.parallel.mesh import cast_floating
+    model = build_hrda_star("mit_b1", device="cuda")  # K1: head dim 64
+    img = torch.rand(1, 1080, 1920, 3, generator=gen,
+                     device="cuda").bfloat16()
+    hrda_slide_forward(model, img)  # build outside the count
+    before = (dilated_dwconv3x3.launches, dilated_dwconv3x3.fused)
+    out = hrda_slide_forward(model, img)
+    assert torch.isfinite(out).all()
+    assert (dilated_dwconv3x3.launches - before[0],
+            dilated_dwconv3x3.fused - before[1]) == (3, 3)
+
+    dims = (64, 128, 320, 512)
+    head = DAFormerHead(19, in_channels=dims, channels=256, embed_dims=256)
+    head.init_weights(torch.Generator().manual_seed(0))
+    head = cast_floating(head.cuda().train(), torch.bfloat16)
+    feats = [torch.randn(8, 128 // s, 128 // s, c, generator=gen,
+                         device="cuda").bfloat16().requires_grad_()
+             for s, c in zip((1, 2, 4, 8), dims)]
+    before = (dilated_dwconv3x3.launches, dilated_dwconv3x3.fused)
+    seg = head(feats, gen)  # train-mode dropout draws from the generator
+    assert (dilated_dwconv3x3.launches - before[0],
+            dilated_dwconv3x3.fused - before[1]) == (3, 0)
+    seg.float().square().mean().backward()
+    assert all(torch.isfinite(f.grad).all() for f in feats)

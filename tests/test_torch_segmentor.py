@@ -103,6 +103,24 @@ def test_fold_crops_identity():
                                rtol=0, atol=1e-6)
 
 
+def test_fold_counts_built_once_per_grid():
+    """The visit counts of a box grid are built once and kept; counts first
+    built under inference mode still divide a tensor that requires grad."""
+    from refign_tpu_torch.models import segmentor
+    boxes = compute_slide_boxes((40, 72), (24, 24), (16, 16))
+    crops = torch.randn(len(boxes) * 2, 24, 24, 3,
+                        generator=torch.Generator().manual_seed(5))
+    segmentor._visit_counts.cache_clear()
+    with torch.inference_mode():
+        first = fold_crops(crops, boxes, (40, 72), 2)
+    leaf = crops.clone().requires_grad_()
+    second = fold_crops(leaf, boxes, (40, 72), 2)
+    assert segmentor._visit_counts.cache_info()[:2] == (1, 1)  # hits, misses
+    assert torch.equal(first, second.detach())
+    second.sum().backward()
+    assert torch.isfinite(leaf.grad).all() and (leaf.grad > 0).all()
+
+
 def test_hrda_eval_matches_jax(models):
     seg, variables, port, img = models
     want = np.asarray(jax.jit(lambda v, x: seg.apply(

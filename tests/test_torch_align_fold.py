@@ -71,14 +71,6 @@ FOLD_GRAD_TOTAL = 1e-5
 FOLD_STAT_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _port_run(prime, **opts):
     backbone, head = _port_nets(remat_modules=opts.get("remat_modules",
                                                        False))

@@ -65,14 +65,6 @@ MODEL_ARGS = dict(apply_constant_flow_weights=True, remat_modules=False,
                   remat_skip_last=True)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _config():
     cfg = tiny_stage1_config()
     train = cfg["data"]["init_args"]["load_config"]["train"]["MegaDepth"]

@@ -14,17 +14,6 @@ from test_torch_data import tiny_hrda_config, tiny_stage1_config
 
 TOL = 1e-5
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these tests run many small ops, and the
-    parallel test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-
 def _task(cfg, **margs):
     from refign_tpu_torch.config import build_task
     cfg = copy.deepcopy(cfg)

@@ -23,17 +23,6 @@ from refign_tpu_torch.data.synthetic import (make_acdc, make_cityscapes,
                                              make_megadepth)
 from test_torch_data import jax_epoch, tiny_hrda_config, tiny_stage1_config
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these tests run many small ops, and the
-    parallel test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("data")

@@ -29,16 +29,6 @@ STAGE1_YAML = os.path.join(REPO, "configs", "megadepth",
                            "uawarpc_stage1.yaml")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these tests run many small ops, and the
-    parallel test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # tiny dataset trees (refign_tpu_torch/data/synthetic.py) and configs
 # ---------------------------------------------------------------------------

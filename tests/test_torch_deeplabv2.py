@@ -296,20 +296,19 @@ def trajectory():
         mp.undo()
 
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    with traj._one_thread():
-        trainer = traj._port_trainer(student, UDAConfig(**CFG), align_net,
-                                     imnet, imnet_stats)
-        imnet_before = _stats(trainer.state.imnet)
-        port_logs = []
-        for _ in range(N_STEPS):
-            logs = train_step(trainer, batch, traj._pinned_draws())
-            port_logs.append({k: float(v) for k, v in logs.items()})
-        resumed = traj._port_trainer(_port_segmentor(seed=9),
-                                     UDAConfig(**CFG), align_net, imnet,
-                                     imnet_stats)
-        load_uda_state(resumed, states[N_STEPS - 1])
-        logs = train_step(resumed, batch, traj._pinned_draws())
-        resumed_logs = {k: float(v) for k, v in logs.items()}
+    trainer = traj._port_trainer(student, UDAConfig(**CFG), align_net,
+                                 imnet, imnet_stats)
+    imnet_before = _stats(trainer.state.imnet)
+    port_logs = []
+    for _ in range(N_STEPS):
+        logs = train_step(trainer, batch, traj._pinned_draws())
+        port_logs.append({k: float(v) for k, v in logs.items()})
+    resumed = traj._port_trainer(_port_segmentor(seed=9),
+                                 UDAConfig(**CFG), align_net, imnet,
+                                 imnet_stats)
+    load_uda_state(resumed, states[N_STEPS - 1])
+    logs = train_step(resumed, batch, traj._pinned_draws())
+    resumed_logs = {k: float(v) for k, v in logs.items()}
     return dict(init=variables, jax_logs=jax_logs, states=states,
                 moved=moved, port_logs=port_logs, trainer=trainer,
                 imnet_before=imnet_before, resumed=resumed,

@@ -44,15 +44,6 @@ MAIN_PATH = [(30, 135, 135, 1024, (6, 12, 18)),
              (4, 128, 128, 1024, (6, 12, 18))]
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the parallel test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _bf16_values(g, *shape, scale=1.0):
     """fp32 tensor of bf16-representable values."""
     return (scale * torch.randn(*shape, generator=g)).bfloat16().float()

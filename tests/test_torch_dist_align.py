@@ -31,14 +31,6 @@ import torch_dist_ranks as R
 FLOOR_ADD, FLOOR_X = 1e-4, 5.0
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return R.spawn(R.align_case, 2, str(tmp_path_factory.mktemp("align")))

@@ -33,14 +33,6 @@ from refign_tpu_torch.entry import dryrun_multigpu
 from test_torch_data import tiny_hrda_config
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("dist_cli")

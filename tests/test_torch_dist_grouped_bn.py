@@ -29,14 +29,6 @@ WORLD = 2
 G = R.GBN_GROUPS
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return R.spawn(R.grouped_case, WORLD,

@@ -43,14 +43,6 @@ REL = 1e-6
 WORLDS = (2, 4)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def dacs_draws():
     return _jax_dacs_draws(jax.random.PRNGKey(3), 4, 0.2, True)

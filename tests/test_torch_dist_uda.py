@@ -44,14 +44,6 @@ GRAD_MEDIAN = 1e-5
 GRAD_PARAM, FLOOR_X = 1e-5, 5.0
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return R.spawn(R.uda_case, 2, str(tmp_path_factory.mktemp("uda")))

@@ -34,14 +34,6 @@ from test_torch_uda_trajectory import (CFG, LOSS_KEYS, LOSS_RTOL, NORM_RTOL,
 GB = 4
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pinned_draws():
     """The trajectory file's pinned draws for the global batch of 4."""
     scores = (1.0 - torch.arange(20, dtype=torch.float32) / 20).expand(

@@ -31,14 +31,6 @@ G = 3
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _inputs(shape, seed):
     rng = np.random.RandomState(seed)
     C = shape[-1]

@@ -34,14 +34,6 @@ SAVED_OPS = ("aten.mm.default", "aten.addmm.default",
              "aten.convolution.default")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 class _OpCount(TorchDispatchMode):
     def __init__(self):
         super().__init__()

@@ -15,17 +15,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: these tests run many small ops, and the
-    parallel test workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-
 def test_every_config_is_covered():
     assert len(CONFIGS) == 17
 

@@ -35,14 +35,6 @@ FLAGS = ("batch_norm", "refinement_at_adaptive_res",
          "refinement_at_finest_level")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _inputs(B, seed):
     """Pyramids (trg, src, trg_256, src_256) for a 64x96 image."""
     shapes = [(B, 16, 24, 128), (B, 8, 12, 256), (B, 32, 32, 256),

@@ -403,15 +403,8 @@ def test_entry_uda_train_step_on_cpu():
             weights.append(tr.state.student.state_dict()[key].clone())
         return tr, logs, weights
 
-    # one intra-op thread: the VGG-16 align convs at 256^2 crawl when every
-    # test worker's thread pool competes for the cores
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        tr, logs, (w0, w1, w2) = run()
-        _, again, _ = run()
-    finally:
-        torch.set_num_threads(threads)
+    tr, logs, (w0, w1, w2) = run()
+    _, again, _ = run()
     st = tr.state
     assert st.step == 2
     for lg in logs:

@@ -82,15 +82,14 @@ def test_branch_step_matches_jax(branch):
                or port_real(*a, **k))
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     try:
-        with traj._one_thread():
-            trainer = traj._port_trainer(
-                student, UDAConfig(**cfg_kw),
-                align_net if cfg_kw["use_align"] else None, imnet)
-            load_uda_state(trainer, start)
-            draws = dataclasses.replace(traj._pinned_draws(),
-                                        use_ref_as_target=coin)
-            got = {k: float(v) for k, v in train_step(trainer, batch,
-                                                      draws).items()}
+        trainer = traj._port_trainer(
+            student, UDAConfig(**cfg_kw),
+            align_net if cfg_kw["use_align"] else None, imnet)
+        load_uda_state(trainer, start)
+        draws = dataclasses.replace(traj._pinned_draws(),
+                                    use_ref_as_target=coin)
+        got = {k: float(v) for k, v in train_step(trainer, batch,
+                                                  draws).items()}
     finally:
         mp.undo()
 

@@ -29,7 +29,6 @@ package's ``convert_state_dict``.
 Both sides compute in fp32 on the CPU; they differ by summation order,
 which the closed teacher -> student loop carries from step to step.
 """
-import contextlib
 import dataclasses
 import functools
 
@@ -191,19 +190,6 @@ def _imnet(params):
         params["backbone"])
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """One intra-op thread for the port's steps: the VGG-16 align convs at
-    256^2 crawl when every test worker's thread pool competes for the
-    cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(threads)
-
-
 def _port_trainer(student, cfg, align_net, imnet, imnet_stats=None):
     """A port trainer on ``student`` whose ImageNet copy holds ``imnet``
     (and ``imnet_stats``, the BatchNorm statistics of a BN backbone)."""
@@ -350,20 +336,19 @@ def trajectory():
     mp.setattr(port_trainer, "refine", port_capturing_refine)
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
     try:
-        with _one_thread():
-            trainer = _port_trainer(student, UDAConfig(**CFG), align_net,
-                                    imnet)
-            port_logs, port_norms = [], []
-            for _ in range(N_STEPS):
-                logs = train_step(trainer, batch, _pinned_draws())
-                port_logs.append({k: float(v) for k, v in logs.items()})
-                port_norms.append(_sq_norm_port(trainer))
-            # from the JAX state after N_STEPS - 1 steps, one more port step
-            resumed = _port_trainer(_port_student(False, seed=9),
-                                    UDAConfig(**CFG), align_net, imnet)
-            load_uda_state(resumed, states[N_STEPS - 1])
-            logs = train_step(resumed, batch, _pinned_draws())
-            resumed_logs = {k: float(v) for k, v in logs.items()}
+        trainer = _port_trainer(student, UDAConfig(**CFG), align_net,
+                                imnet)
+        port_logs, port_norms = [], []
+        for _ in range(N_STEPS):
+            logs = train_step(trainer, batch, _pinned_draws())
+            port_logs.append({k: float(v) for k, v in logs.items()})
+            port_norms.append(_sq_norm_port(trainer))
+        # from the JAX state after N_STEPS - 1 steps, one more port step
+        resumed = _port_trainer(_port_student(False, seed=9),
+                                UDAConfig(**CFG), align_net, imnet)
+        load_uda_state(resumed, states[N_STEPS - 1])
+        logs = train_step(resumed, batch, _pinned_draws())
+        resumed_logs = {k: float(v) for k, v in logs.items()}
     finally:
         mp.undo()
     return dict(init=variables, jax_logs=jax_logs, jax_norms=jax_norms,
@@ -478,9 +463,8 @@ def test_hrda_step_matches_jax():
     finally:
         mp.undo()
     batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-    with _one_thread():
-        got = {k: float(v) for k, v in train_step(
-            trainer, batch, _pinned_draws(*offsets)).items()}
+    got = {k: float(v) for k, v in train_step(
+        trainer, batch, _pinned_draws(*offsets)).items()}
     assert want["train_loss_featdist_src"] > 1e-4
     for key in LOSS_KEYS:
         np.testing.assert_allclose(got[key], want[key], rtol=LOSS_RTOL,

@@ -45,12 +45,22 @@ def _rank_main(rank, world, port, case, args, out_dir, join):
 def spawn(case, world, out_dir, *args, join=True):
     """Run ``case(rank, world, *args)`` on ``world`` gloo ranks; the list
     of their results.  ``join`` False: the ranks get the launcher's
-    environment and join no group themselves (the CLI does)."""
+    environment and join no group themselves (the CLI does).  A rank still
+    running when spawn leaves, as when the test's time limit unwinds it, is
+    killed: no rank outlives the call."""
     import torch.multiprocessing as mp
     os.makedirs(out_dir, exist_ok=True)
-    mp.start_processes(_rank_main,
-                       args=(world, free_port(), case, args, out_dir, join),
-                       nprocs=world, start_method="spawn")
+    ctx = mp.start_processes(
+        _rank_main, args=(world, free_port(), case, args, out_dir, join),
+        nprocs=world, start_method="spawn", join=False)
+    try:
+        while not ctx.join():
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
 

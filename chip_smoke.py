@@ -26,11 +26,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tools/, their bounds and library calls at their own shapes; K3 and its
    backward (gs alone) also at the folded UAWarpC step's 18-row levels;
    and the native host correlation (``refign_tpu_torch/native``, built
-   with g++) against K3's plain version and K3 at a small shape;
+   with g++) against K3's plain version and K3 at a small shape; K5 (the
+   bf16 LayerNorm) at the MiT-B5 slide frame's seven LayerNorm shapes
+   against the composite it replaces (99.9 % equal, the rest within one
+   bf16 ulp or, where the output cancels to near zero, 2^-16 of its terms),
+   its device time on inputs not in L2 beside its bytes bound, the
+   composite's and ``F.layer_norm``'s, and the wall time of back-to-back
+   calls of K5 and of the composite;
 4. HRDA★ path: Refign-HRDA★ (MiT-B5, DAFormer, SegFormer scale attention,
    seeded random bf16 weights) on a 1x1080x1920 image through
    ``build_hrda_star`` and ``hrda_slide_forward``: the output is checked
    for shape and finiteness, K1 and K2 must launch 52 times per forward,
+   K5 161 times with no LayerNorm through the composite,
    and the forward must agree with the same model run through the plain
    versions; a small fp32 model checks the kernels' path tightly; a
    ``utils/profiling.StepTracer`` window over two warm forwards must write
@@ -50,8 +57,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``uda_train_step``: from one state with the same draws, one step's
    losses and every parameter's gradient through the kernels must agree
    with the plain versions' (and tightly on a small fp32 model); one step
-   must launch K1 and K2 312 times forward and 104 times backward and K3 3
-   times; then 1 warm-up and 5 timed steps with finite losses, the peak
+   must launch K1 and K2 312 times forward and 104 times backward, K3 3
+   times and K5 322 times (the teacher's and the ImageNet copy's
+   forwards); then 1 warm-up and 5 timed steps with finite losses, the peak
    memory and a profile; then the MiT blocks' recompute under
    ``remat_policy='dots'`` (products and convolutions kept, K1 and K2
    recomputed) against the whole-block recompute from one state with the
@@ -152,7 +160,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 There is no CPU path: without a CUDA device the script exits non-zero.
 """
 import contextlib
+import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -205,10 +215,33 @@ TRAIN_PASSES = 2
 K4_DILATIONS = (6, 12, 18)
 K4_LAUNCHES_PER_FORWARD = len(K4_DILATIONS)  # 3
 K4_MAP = (30, 135, 135, 1024)  # a slide frame's ASPP input, 30 crops at 1/4
+# K5, the MiT-B5 LayerNorms of a slide frame (30 rows of 540^2): (launches,
+# rows, C).  The four token maps (135^2, 68^2, 34^2, 17^2) take each stage's
+# patch-embed norm, a block's two and the stage's own; the spatial
+# reductions' norms (stages 1-3) take the 16^2 or 17^2 reduced maps
+LN_SHAPES = [
+    (8, B_ROWS * 18225, 64), (14, B_ROWS * 4624, 128),
+    (82, B_ROWS * 1156, 320), (8, B_ROWS * 289, 512),
+    (3, B_ROWS * 256, 64), (6, B_ROWS * 289, 128), (40, B_ROWS * 289, 320),
+]
+LN_LAUNCHES_PER_FORWARD = sum(s[0] for s in LN_SHAPES)  # 161
+# K5 against the composite (phase 3, tests/test_torch_layer_norm.py): the
+# fp32 row sums run in another order, so m and r may differ by a few fp32
+# roundings.  Most outputs then stay equal and the rest one bf16 ulp apart,
+# but where the terms of y = x*s + (b - m*r*w) cancel to near zero the
+# output moves by many ulps of its own: by fp32 noise of the terms, and
+# at most a 256th of a bf16 ulp of them
+LN_ULPS = 1
+LN_EQUAL_SHARE = 0.999
+LN_CANCEL_REL = 2.0 ** -16
+# K5 times read device memory cold: each timed launch takes the next of
+# enough inputs to fill this many bytes, twice H100's 50 MB L2
+LN_COLD_BYTES = 100e6
 # launches per step: the forward kernels run in the teacher, the ImageNet
 # copy, both student passes and both recomputes of the remat; the backward
 # kernels in both student backwards; K3 in the align step; K4 in the heads
-# of the teacher and of both student passes
+# of the teacher and of both student passes; K5 in the two forwards without
+# a gradient, the teacher's and the ImageNet copy's
 TRAIN_LAUNCHES = {
     "sra_attention": 6 * LAUNCHES_PER_FORWARD,
     "sra_attention_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
@@ -216,6 +249,7 @@ TRAIN_LAUNCHES = {
     "dwconv3x3_gelu_backward": TRAIN_PASSES * LAUNCHES_PER_FORWARD,
     "local_correlation": 3,
     "dilated_dwconv3x3": 3 * K4_LAUNCHES_PER_FORWARD,
+    "layer_norm": 2 * LN_LAUNCHES_PER_FORWARD,
 }
 
 # UAWarpC local correlation (K3) at the UDA geometry: B=4 1024^2 crops,
@@ -815,6 +849,111 @@ def phase_kernels():
     return rows
 
 
+def layer_norm_agreement(got, x, w, b, eps):
+    """K5's bf16 output ``got`` against the composite's on the same inputs
+    (``layer_norm_reference``): returns the share of elements equal, the
+    most bf16 ulps apart, the most |got - ref| / (|x*s| + |b| + |m*r*w|)
+    (the magnitudes of the output's terms) over the elements more than
+    ``LN_ULPS`` apart, and the most |got - ref|.  Raises where fewer than
+    ``LN_EQUAL_SHARE`` are equal, or an element is both more than
+    ``LN_ULPS`` apart and more than ``LN_CANCEL_REL`` of its terms."""
+    import torch
+    from refign_tpu_torch.ops.layer_norm import layer_norm_reference
+
+    def ordered(t):  # bf16 bit patterns on one ordered line
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    ref = layer_norm_reference(x, w, b, eps)
+    ulps = (ordered(got) - ordered(ref)).abs()
+    equal, worst = (ulps == 0).float().mean().item(), ulps.max().item()
+    far = ulps > LN_ULPS
+    worst_rel = 0.0
+    if far.any():
+        # the composite's statistics; the terms' magnitudes
+        x32, w32, b32 = x.float(), w.float(), b.float()
+        m = x32.mean(-1, keepdim=True)
+        m2 = x32.square().mean(-1, keepdim=True)
+        r = torch.rsqrt(torch.clamp(m2 - m.square(), min=0.0) + eps)
+        terms = ((x32 * (r * w32)).abs() + b32.abs()
+                 + (m * r * w32).abs())
+        worst_rel = ((got.float() - ref.float()).abs()[far]
+                     / terms[far]).max().item()
+    if equal < LN_EQUAL_SHARE or worst_rel > LN_CANCEL_REL:
+        raise AssertionError(
+            f"layer_norm {tuple(x.shape)}: {100 * equal:.4f} % equal, "
+            f"{int(far.sum())} elements more than {LN_ULPS} ulp apart by "
+            f"up to {worst_rel:.3e} of their terms (limit "
+            f"{LN_CANCEL_REL:g})")
+    return equal, worst, worst_rel, (got.float() - ref.float()).abs().max(
+    ).item()
+
+
+def phase_layer_norm():
+    """K5 at the MiT-B5 slide frame's LayerNorm shapes against the
+    composite it replaces (``layer_norm_reference``, the parent's bf16 arm)
+    on the same inputs, by ``layer_norm_agreement``.  Times are device times
+    from the profiler, each launch on inputs that are not in L2; the
+    composite's and ``F.layer_norm``'s (bf16, the library yardstick the
+    port never calls) likewise, and the kernel's and the composite's wall
+    time of back-to-back calls, which holds the host's dispatch."""
+    import torch
+    import torch.nn.functional as F
+    from refign_tpu_torch.ops.layer_norm import (layer_norm,
+                                                 layer_norm_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16 = torch.bfloat16
+    eps = 1e-6
+    rows = []
+    for n_launch, R, C in LN_SHAPES:
+        t_row = time.perf_counter()
+        nbytes = R * C * 2
+        xs = [(1.5 + 2.0 * torch.randn(R, C, generator=gen, device="cuda")
+               ).to(bf16) for _ in range(max(1, math.ceil(LN_COLD_BYTES
+                                                          / nbytes)))]
+        w = (1 + 0.3 * torch.randn(C, generator=gen, device="cuda")).to(bf16)
+        b = (0.2 * torch.randn(C, generator=gen, device="cuda")).to(bf16)
+        got = layer_norm(xs[0], w, b, eps)
+        equal, worst, worst_rel, err = layer_norm_agreement(got, xs[0], w, b,
+                                                            eps)
+        cycle = itertools.cycle(xs)
+        kernel = lambda: layer_norm(next(cycle), w, b, eps)  # noqa: E731
+        plain = lambda: layer_norm_reference(  # noqa: E731
+            next(cycle), w, b, eps)
+        library = lambda: F.layer_norm(  # noqa: E731
+            next(cycle), (C,), w, b, eps)
+        bound = 1e3 * (2 * nbytes + 4 * C) / HBM_BYTES_PER_S
+        row = dict(name="layer_norm", shape=[R, C], kind="main", mode="",
+                   dtype="bfloat16", launches_per_forward=n_launch,
+                   max_abs_err=err, max_ulps=worst, cancel_rel=worst_rel,
+                   equal_share=equal,
+                   ms=device_ms(kernel), plain_ms=device_ms(plain),
+                   library_ms=device_ms(library),
+                   wall_ms=time_ms(kernel), plain_wall_ms=time_ms(plain),
+                   bound_ms=bound, bound_by="bytes")
+        row["bound_share"] = bound / row["ms"]
+        rows.append(row)
+        log(f"  layer_norm ({R:6d}, {C:3d}) x{n_launch:<2d} "
+            f"{100 * equal:.4f} % equal, ulps <= {worst} (beyond 1: <= "
+            f"{worst_rel:.2e} of the terms)  kernel {row['ms']:.4f} ms (wall "
+            f"{row['wall_ms']:.4f})  bound {bound:.4f} ms "
+            f"({100 * row['bound_share']:.1f} % of it)  plain "
+            f"{row['plain_ms']:.4f} ms (wall {row['plain_wall_ms']:.4f})  "
+            f"F.layer_norm {row['library_ms']:.4f} ms")
+        del xs, got
+        add_seconds(f"3 layer_norm ({R}, {C})", t_row)
+    frame = {k: sum(r[k] * r["launches_per_forward"] for r in rows)
+             for k in ("ms", "bound_ms", "plain_ms", "library_ms",
+                       "wall_ms", "plain_wall_ms")}
+    log(f"  layer_norm per slide frame ({LN_LAUNCHES_PER_FORWARD} "
+        f"launches): kernel {frame['ms']:.3f} ms (wall "
+        f"{frame['wall_ms']:.3f}), bound {frame['bound_ms']:.3f} ms, "
+        f"composite {frame['plain_ms']:.3f} ms (wall "
+        f"{frame['plain_wall_ms']:.3f}), F.layer_norm "
+        f"{frame['library_ms']:.3f} ms")
+    return rows
+
+
 def check_grad(name, got, ref, dtype):
     """A backward kernel's gradient against the fp32 gradient of the plain
     version: |got - ref| <= GRAD_REL*max|ref| (+ BF16_REL*|ref| in bf16);
@@ -1208,15 +1347,15 @@ def phase_lab_yardsticks():
 
 
 def plain_versions(enabled: bool):
-    """Test-only switch: route the MiT blocks, the DAFormer head's dilated
-    depthwise convs and the UAWarpC head's local correlations through the
-    kernels' plain versions (enabled) or back through the kernel
-    wrappers."""
+    """Test-only switch: route the MiT blocks and LayerNorms, the DAFormer
+    head's dilated depthwise convs and the UAWarpC head's local
+    correlations through the kernels' plain versions (enabled) or back
+    through the kernel wrappers."""
     from refign_tpu_torch.models import mix_transformer as mt
     from refign_tpu_torch.models.heads import uawarpc
     from refign_tpu_torch.nn import layers
     from refign_tpu_torch.ops import (attention, correlation, dilated_dwconv,
-                                      dwconv)
+                                      dwconv, layer_norm)
     mt.sra_attention = (attention.sra_attention_reference if enabled
                         else attention.sra_attention)
     mt.dwconv3x3_gelu = (dwconv.dwconv3x3_gelu_reference if enabled
@@ -1227,19 +1366,24 @@ def plain_versions(enabled: bool):
     layers.dilated_dwconv3x3 = (
         dilated_dwconv.dilated_dwconv3x3_reference if enabled
         else dilated_dwconv.dilated_dwconv3x3)
+    layers.layer_norm = (layer_norm.layer_norm_reference if enabled
+                         else layer_norm.layer_norm)
 
 
 def phase_main_path(card):
     import torch
     from refign_tpu_torch.entry import build_hrda_star, hrda_slide_forward
+    from refign_tpu_torch.nn import layers
     from refign_tpu_torch.ops.attention import sra_attention
     from refign_tpu_torch.ops.dilated_dwconv import dilated_dwconv3x3
     from refign_tpu_torch.ops.dwconv import dwconv3x3_gelu
+    from refign_tpu_torch.ops.layer_norm import layer_norm
 
-    counted = (sra_attention, dwconv3x3_gelu, dilated_dwconv3x3)
+    counted = (sra_attention, dwconv3x3_gelu, dilated_dwconv3x3, layer_norm)
     per_forward = {"sra_attention": LAUNCHES_PER_FORWARD,
                    "dwconv3x3_gelu": LAUNCHES_PER_FORWARD,
-                   "dilated_dwconv3x3": K4_LAUNCHES_PER_FORWARD}
+                   "dilated_dwconv3x3": K4_LAUNCHES_PER_FORWARD,
+                   "layer_norm": LN_LAUNCHES_PER_FORWARD}
 
     # small fp32 model first: kernels against plain versions, tightly
     small = build_hrda_star("mit_b1", dtype=torch.float32, device="cuda",
@@ -1271,7 +1415,17 @@ def phase_main_path(card):
     for f in counted:
         f.launches = 0
     dilated_dwconv3x3.fused = 0
-    out = hrda_slide_forward(model, img)
+    # a bf16 LayerNorm without a gradient never takes the composite
+    composite = layers.layer_norm_reference
+
+    def refuse(*_):
+        raise AssertionError("a bf16 LayerNorm without a gradient took the "
+                             "composite")
+    layers.layer_norm_reference = refuse
+    try:
+        out = hrda_slide_forward(model, img)
+    finally:
+        layers.layer_norm_reference = composite
     torch.cuda.synchronize()
     launches = {f.__name__: f.launches for f in counted}
     fused = dilated_dwconv3x3.fused
@@ -1698,6 +1852,7 @@ def phase_train(card):
     from refign_tpu_torch.ops.dilated_dwconv import dilated_dwconv3x3
     from refign_tpu_torch.ops.dwconv import (dwconv3x3_gelu,
                                              dwconv3x3_gelu_backward)
+    from refign_tpu_torch.ops.layer_norm import layer_norm
     from refign_tpu_torch.uda.trainer import draw_step, train_step
 
     counted = {"sra_attention": sra_attention,
@@ -1705,7 +1860,8 @@ def phase_train(card):
                "dwconv3x3_gelu": dwconv3x3_gelu,
                "dwconv3x3_gelu_backward": dwconv3x3_gelu_backward,
                "local_correlation": k3,
-               "dilated_dwconv3x3": dilated_dwconv3x3}
+               "dilated_dwconv3x3": dilated_dwconv3x3,
+               "layer_norm": layer_norm}
 
     # small fp32 model first: kernels against plain versions, tightly.
     # mit_b1 (MiT-B5's widths and heads at depth 2): K1 takes head dim 64,
@@ -3591,6 +3747,7 @@ KERNEL_GROUPS = [  # (group, substrings of device kernel names), first match
                      "::raw_grad_kernel<", "::input_grad_kernel<")),
     ("K3 local_correlation", ("local_correlation",)),
     ("K4 dilated_dwconv", ("dilated_dwconv_fwd_kernel",)),
+    ("K5 layer_norm", ("layer_norm_fwd_kernel",)),
     # F.grid_sample runs as cuDNN's sampler on these shapes
     ("grid_sample", ("grid_sampler", "bilinear_sampler")),
     # cuDNN's implicit-GEMM convolutions carry "gemm" in their names too
@@ -3698,6 +3855,7 @@ def main() -> int:
         f"backward: {GRAD_REL:g}*max|ref|, + {BF16_REL:g}*|ref| in bf16)")
     with timed("3"):
         rows = phase_kernels()
+        rows += phase_layer_norm()
         rows += phase_backward_kernels()
         with timed("3 native oracle"):
             phase_native()
@@ -3761,9 +3919,10 @@ def main() -> int:
                "local_correlation_backward": (
                    "refign_tpu_torch/csrc/local_correlation_backward.cu",
                    "refign_tpu/ops/correlation.py:135"),
-               # no TPU kernel: the JAX package leaves this conv to XLA
+               # no TPU kernel: the JAX package leaves these to XLA
                "dilated_dwconv3x3": (
-                   "refign_tpu_torch/csrc/dilated_dwconv.cu", None)}
+                   "refign_tpu_torch/csrc/dilated_dwconv.cu", None),
+               "layer_norm": ("refign_tpu_torch/csrc/layer_norm.cu", None)}
     kernels = []
     for name, (src, replaces) in sources.items():
         main_rows = [r for r in rows if r["name"] == name
@@ -3792,7 +3951,8 @@ def main() -> int:
                       else "bytes"),
             library_ms=per_call("library_ms"), bound_share=bound / ms))
     log("kernel times are per call of each kernel's path: K1 and K2 summed "
-        "over their 52 launches and K4 over its 3 fused ones in one "
+        "over their 52 launches, K4 over its 3 fused ones and K5 over its "
+        "161 in one "
         f"1080x1920 HRDA* forward ({1.0 / sec:.3f} images/s), K3 over its "
         f"3 launches in one B=4 1024^2 align and refine ({align_sec * 1e3:.1f} ms), K1 and K2 "
         "backward (device time) over their 104 launches in one B=4 1024^2 "
@@ -3865,7 +4025,8 @@ def main() -> int:
     libs = {"sra_attention": "SDPA", "dwconv3x3_gelu": "cuDNN conv + gelu",
             "sra_attention_backward": "SDPA forward + backward",
             "dwconv3x3_gelu_backward": "cuDNN conv + gelu backward",
-            "dilated_dwconv3x3": "cuDNN grouped conv + BatchNorm chain"}
+            "dilated_dwconv3x3": "cuDNN grouped conv + BatchNorm chain",
+            "layer_norm": "F.layer_norm"}
     for k in kernels:
         lib = libs.get(k["name"])
         first = FIRST_BACKWARD_STEP_MS.get(k["name"])

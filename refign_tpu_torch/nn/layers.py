@@ -8,7 +8,8 @@ helpers below, or loads them (``utils/jax_convert.py``).
 Numerics kept from the JAX package:
 
 * ``TorchLayerNorm`` on bf16 folds the whole transform into one fp32 FMA
-  (``y = x*s + t``), as ``refign_tpu/nn/layers.py:126-136`` does.
+  (``y = x*s + t``), as ``refign_tpu/nn/layers.py:126-136`` does; without
+  a gradient it is one launch of kernel K5.
 * ``TorchBatchNorm`` keeps its running statistics in fp32 and, on bf16
   input, applies the fp32 fold ``y = x*a + b``
   (``refign_tpu/nn/layers.py:248-260``).  In train mode it normalises with
@@ -51,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.dilated_dwconv import dilated_dwconv3x3
+from ..ops.layer_norm import layer_norm, layer_norm_reference
 from ..parallel import mesh
 
 __all__ = [
@@ -128,7 +130,9 @@ class TorchLayerNorm(nn.Module):
 
     fp32: normalize, then affine.  bf16: one fp32 FMA ``x*s + t`` with
     ``s = rsqrt(var+eps)*scale`` and ``t = bias - mean*rsqrt(var+eps)*scale``
-    (variance as E[x^2]-E[x]^2, clamped at 0), then a cast to bf16.
+    (variance as E[x^2]-E[x]^2, clamped at 0), then a cast to bf16
+    (``ops/layer_norm.py``): in one launch of K5 where no gradient flows,
+    else as the composite of torch ops that autograd differentiates.
     """
 
     def __init__(self, dim: int, eps: float = 1e-5):
@@ -137,17 +141,21 @@ class TorchLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
+    def _takes_kernel(self, x: torch.Tensor) -> bool:
+        """K5 normalises bf16 x where no gradient flows."""
+        return x.dtype == torch.bfloat16 and not (
+            torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, self.weight, self.bias)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._takes_kernel(x):
+            return layer_norm(x.contiguous(), self.weight, self.bias,
+                              self.eps)
+        if x.dtype == torch.bfloat16:
+            return layer_norm_reference(x, self.weight, self.bias, self.eps)
         x32 = x.float()
         w = self.weight.float()
         b = self.bias.float()
-        if x.dtype == torch.bfloat16:
-            m = x32.mean(-1, keepdim=True)
-            m2 = x32.square().mean(-1, keepdim=True)
-            r = torch.rsqrt(torch.clamp(m2 - m.square(), min=0.0) + self.eps)
-            s = r * w
-            t = b - m * r * w
-            return (x32 * s + t).to(x.dtype)
         mean = x32.mean(-1, keepdim=True)
         var = (x32 - mean).square().mean(-1, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)

@@ -2076,7 +2076,7 @@ def phase_align_train(card):
     import dataclasses
     import torch
     from refign_tpu_torch.alignment.trainer import draw_align, train_step
-    from refign_tpu_torch.entry import (UAWARPC_STAGE1, align_train_step,
+    from refign_tpu_torch.entry import (ALIGN_STAGES, align_train_step,
                                         build_align_trainer)
     from refign_tpu_torch.ops.attention import (sra_attention,
                                                 sra_attention_backward)
@@ -2093,7 +2093,7 @@ def phase_align_train(card):
 
     # a reduced fp32 step first: kernels against plain versions, tightly
     # (B=2 pairs loaded at 288^2, cropped to 256^2)
-    cfg32 = dataclasses.replace(UAWARPC_STAGE1, compute_dtype="float32",
+    cfg32 = dataclasses.replace(ALIGN_STAGES[1][0], compute_dtype="float32",
                                 crop_after_flow=(256, 256))
     small = build_align_trainer(1, cfg=cfg32, device="cuda", seed=1)
     compare_align_step(
@@ -2393,8 +2393,9 @@ def phase_deeplabv2(card):
     images throughout (``randomize_bn``, ``calibrate_bn``)."""
     import dataclasses
     import torch
-    from refign_tpu_torch.entry import (REFIGN_DEEPLABV2, build_deeplabv2,
-                                        build_uda_trainer, deeplabv2_forward)
+    from refign_tpu_torch.entry import (DEEPLABV2, build_deeplabv2,
+                                        build_uda_trainer, deeplabv2_forward,
+                                        load_task)
     from refign_tpu_torch.models.heads import uawarpc
     from refign_tpu_torch.ops.attention import (sra_attention,
                                                 sra_attention_backward)
@@ -2462,9 +2463,10 @@ def phase_deeplabv2(card):
     del model, out, img
 
     # the UDA step: a small fp32 step first, kernels against plain versions
-    cfg32 = dataclasses.replace(REFIGN_DEEPLABV2, compute_dtype="float32")
+    cfg32 = dataclasses.replace(load_task(DEEPLABV2).uda_cfg,
+                                compute_dtype="float32")
     small = build_uda_trainer("resnet50_v1c", cfg=cfg32, device="cuda",
-                              seed=1)
+                              seed=1, config=DEEPLABV2)
     sbatch = uda_batch(2, 256, 1, "cuda")
     prepare_trainer_bn(small, 2, sbatch["image_trg"])
     compare_step("resnet50_v1c + DeepLabV2 fp32 B=2 256^2",
@@ -2475,7 +2477,7 @@ def phase_deeplabv2(card):
     del small, sbatch
 
     t0 = time.perf_counter()
-    trainer = build_uda_trainer("resnet101_v1c", device="cuda", seed=0)
+    trainer = build_uda_trainer(device="cuda", seed=0, config=DEEPLABV2)
     batch = uda_batch(DL_B, DL_HW, 0, "cuda")
     prepare_trainer_bn(trainer, 3, batch["image_trg"])
     torch.cuda.synchronize()
@@ -3417,8 +3419,8 @@ def _dist_uda_cases():
 
 def _dist_align_cases():
     import dataclasses
-    from refign_tpu_torch.entry import UAWARPC_STAGE1
-    cfg32 = dataclasses.replace(UAWARPC_STAGE1, compute_dtype="float32",
+    from refign_tpu_torch.entry import ALIGN_STAGES
+    cfg32 = dataclasses.replace(ALIGN_STAGES[1][0], compute_dtype="float32",
                                 crop_after_flow=(256, 256))
     # the fp32 step also with PyTorch's own convolutions (cuDNN off); with
     # cuDNN, whose algorithms (so summation order) follow the batch size,

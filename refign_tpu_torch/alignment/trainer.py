@@ -139,7 +139,7 @@ class AlignConfig:
     """Static settings of the step (the JAX ``AlignConfig`` with its
     defaults; the JAX ``device_normalize`` switch has no counterpart: uint8
     batches are always normalised on the device, float ones pass).
-    ``entry.UAWARPC_STAGE1`` and ``UAWARPC_STAGE2`` hold the two stages."""
+    ``entry.ALIGN_STAGES`` holds the two stages' settings."""
     loss_type: str = "HuberLoss"
     # passed in the adaptive weighting's weight_ss slot, as the reference
     # does (alignment_model.py:141-143): False (both stages) gives ratio

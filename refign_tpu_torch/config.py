@@ -7,13 +7,28 @@ Reference class paths (``models.backbones.MixVisionTransformer`` etc.) map
 onto the port's modules by their last component, so every YAML under
 ``configs/`` runs unchanged.  The JAX modules infer their input widths at
 init; the port's heads take them from the backbone they are built for.
+
+This module owns the whole mapping from a file to the port's objects: the
+step settings (``uda_config``, ``align_config``), the networks
+(``build_segmentor``, ``build_alignment_net``) and the tasks
+(``build_task``).  The CLI and ``entry.py`` both build through it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
 import yaml
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "refign_tpu_torch entry points run on CUDA by default and no "
+            "CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def load_yaml(path: str) -> Dict[str, Any]:
@@ -66,7 +81,8 @@ def build_backbone(spec: Dict[str, Any]):
     if name == "ResNet":
         return ResNet(**_known(
             args, ("model_type", "strides", "dilations", "out_indices",
-                   "contract_dilation", "norm_eval", "max_pool_ceil_mode"),
+                   "contract_dilation", "norm_eval", "max_pool_ceil_mode",
+                   "stem_channels", "base_channels"),
             ("strides", "dilations", "out_indices"))), pretrained
     if name == "VGG":
         return VGG(**_known(args, ("model_type", "out_indices"),
@@ -117,6 +133,110 @@ def build_head(spec: Dict[str, Any], in_channels: Sequence[int] = ()):
                    "refinement_at_finest_level", "estimate_uncertainty",
                    "iterative_refinement"), ("in_index",))), pretrained
     raise ValueError(f"unknown head {name}")
+
+
+def build_segmentor(model_args: Dict[str, Any], seed: int = 0):
+    """The segmentor of a model section: backbone, head and (with
+    ``use_hrda``) the ``hrda_scale_attention``, their weights drawn in that
+    order from one generator seeded with ``seed``, fp32 on the CPU.  No
+    ``pretrained`` file is loaded."""
+    from .models.segmentor import Segmentor
+    backbone, _ = build_backbone(model_args["backbone"])
+    widths = backbone_widths(backbone)
+    head, _ = build_head(model_args["head"], widths)
+    scale_attention = None
+    if model_args.get("use_hrda", False) and \
+            model_args.get("hrda_scale_attention"):
+        scale_attention, _ = build_head(model_args["hrda_scale_attention"],
+                                        widths)
+    gen = torch.Generator().manual_seed(seed)
+    for m in (backbone, head, scale_attention):
+        if m is not None:
+            m.init_weights(gen)
+    return Segmentor(backbone, head, scale_attention,
+                     hrda_output_stride=model_args.get("hrda_output_stride",
+                                                       4))
+
+
+def build_alignment_net(model_args: Dict[str, Any], seed: int = 0):
+    """The alignment network of a model section (``alignment_backbone``,
+    ``alignment_head``), its weights drawn from ``seed``, fp32 on the CPU.
+    No ``pretrained`` file is loaded."""
+    from .alignment.trainer import AlignmentNet
+    backbone, _ = build_backbone(model_args["alignment_backbone"])
+    head, _ = build_head(model_args["alignment_head"])
+    gen = torch.Generator().manual_seed(seed)
+    backbone.init_weights(gen)
+    head.init_weights(gen)
+    return AlignmentNet(backbone, head)
+
+
+# ---------------------------------------------------------------------------
+# step settings
+# ---------------------------------------------------------------------------
+
+def _normalization(datamodule, data_normalize: bool) -> Dict[str, Any]:
+    """``norm_mean`` / ``norm_std`` of the data section's Normalize, or
+    nothing (the configs' default constants) where it has none or
+    ``data_normalize`` is off."""
+    norm = getattr(datamodule, "normalize_settings", None)
+    if not (data_normalize and norm):
+        return {}
+    return {"norm_mean": tuple(norm["mean"]), "norm_std": tuple(norm["std"])}
+
+
+# the model keys each step reads under its own field names; a key the file
+# leaves out keeps the field's default
+_UDA_KEYS = ("use_hrda", "hrda_output_stride", "hr_loss_weight", "use_refign",
+             "use_align", "adapt_to_ref", "gamma", "disable_M", "disable_P",
+             "ema_momentum", "pseudo_label_threshold", "psweight_ignore_top",
+             "psweight_ignore_bottom", "enable_fdist", "fdist_lambda",
+             "fdist_classes", "fdist_scale_min_ratio", "color_jitter_s",
+             "color_jitter_p", "blur")
+_ALIGN_FLAGS = ("apply_constant_flow_weights", "remat_head", "remat_skip_last",
+                "fold_passes")
+_FLOW_KEYS = ("include_transforms", "random_alpha", "random_s", "random_tx",
+              "random_ty", "random_t_hom", "random_t_tps",
+              "random_t_tps_for_afftps", "add_elastic", "crop_after_flow")
+
+
+def uda_config(model_args: Dict[str, Any], trainer_cfg: Dict[str, Any],
+               datamodule=None, data_normalize: bool = True):
+    """A ``DomainAdaptationSegmentationModel`` section -> ``UDAConfig``.
+    ``device_normalize`` and the normalisation constants come from
+    ``datamodule``; with ``data_normalize`` off, normalisation stays off
+    the device with the default constants."""
+    from .uda.trainer import UDAConfig
+    return UDAConfig(
+        num_classes=init_args(model_args["head"]).get("num_classes", 19),
+        compute_dtype=precision_dtype((trainer_cfg or {}).get("precision",
+                                                              16)),
+        device_normalize=data_normalize and bool(
+            getattr(datamodule, "device_normalize", False)),
+        **_known(model_args, _UDA_KEYS, ("fdist_classes",)),
+        **_normalization(datamodule, data_normalize))
+
+
+def align_config(model_args: Dict[str, Any], trainer_cfg: Dict[str, Any],
+                 datamodule=None, data_normalize: bool = True):
+    """An ``AlignmentModel`` section -> ``AlignConfig``.  The synthetic
+    flow, its crop and the prime view's photometric settings come from
+    ``datamodule``'s train pipeline, and so do the normalisation constants
+    unless ``data_normalize`` is off."""
+    from .alignment.trainer import AlignConfig
+    flow = getattr(datamodule, "composite_flow_settings", None) or {}
+    prime = getattr(datamodule, "prime_photometric_settings", None) or {}
+    unsupervised = init_args(model_args.get("unsupervised_loss"))
+    return AlignConfig(
+        compute_dtype=precision_dtype((trainer_cfg or {}).get("precision",
+                                                              16)),
+        remat_head_policy=model_args.get("remat_head_policy"),
+        remat_modules=bool(model_args.get("remat_modules", True)),
+        **{k: bool(v) for k, v in _known(model_args, _ALIGN_FLAGS).items()},
+        **{"prime_" + k: v for k, v in prime.items()},
+        **_known(flow, _FLOW_KEYS, ("include_transforms",)),
+        **_known(unsupervised, ("visibility_mask", "alpha_1", "alpha_2")),
+        **_normalization(datamodule, data_normalize))
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +308,10 @@ def build_datamodule(cfg: Dict[str, Any], data_dir: Optional[str] = None):
 
 
 def build_task(cfg: Dict[str, Any], data_dir: Optional[str] = None,
-               device="cuda"):
+               device="cuda", data_normalize: bool = True):
     """Top-level: config dict -> (task, datamodule), the task on
-    ``device`` (which raises when it is ``cuda`` and there is no card)."""
+    ``device`` (which raises when it is ``cuda`` and there is no card).
+    ``data_normalize``: as in :func:`uda_config`."""
     model_cfg = cfg["model"]
     name = class_name(model_cfg)
     datamodule = build_datamodule(cfg["data"], data_dir)
@@ -203,9 +324,11 @@ def build_task(cfg: Dict[str, Any], data_dir: Optional[str] = None,
     if name == "DomainAdaptationSegmentationModel":
         from .tasks.seg_task import SegTask
         return SegTask(init_args(model_cfg), opt, sched, trainer_cfg,
-                       datamodule, device=device), datamodule
+                       datamodule, device=device,
+                       data_normalize=data_normalize), datamodule
     if name == "AlignmentModel":
         from .tasks.align_task import AlignTask
         return AlignTask(init_args(model_cfg), opt, sched, trainer_cfg,
-                         datamodule, device=device), datamodule
+                         datamodule, device=device,
+                         data_normalize=data_normalize), datamodule
     raise ValueError(f"unknown model class {name}")

@@ -32,20 +32,16 @@ import torch
 
 from ..alignment import trainer as atr
 from ..alignment.trainer import AlignmentNet, align_forward
-from ..config import (OptimizerSpec, SchedulerSpec, build_backbone,
-                      build_head, parse_metrics, precision_dtype)
+from ..config import (OptimizerSpec, SchedulerSpec, align_config,
+                      build_alignment_net, parse_metrics, resolve_device)
 from ..data.loader import DevicePrefetcher, InfiniteLoader, cuda_put
-from ..entry import _resolve_device
 from ..parallel import mesh
 from ..parallel.mesh import cast_floating
 from ..train.loop import FitBookkeeper
 from ..train.optim import make_adam_optimizer, multistep_lr
 from ..utils import checkpoint as ckpt
 from ..utils.sparse_epe import SparseEPE
-from .seg_task import _resolve, load_pretrained_backbone
-
-IMNET_MEAN = (0.485, 0.456, 0.406)
-IMNET_STD = (0.229, 0.224, 0.225)
+from .seg_task import load_alignment_pretrained
 
 
 def _host_batch_from(raw_batches):
@@ -62,47 +58,15 @@ class AlignTask:
 
     def __init__(self, margs: Dict[str, Any], opt: OptimizerSpec,
                  sched: SchedulerSpec, trainer_cfg: Dict[str, Any],
-                 datamodule, device="cuda"):
-        self.device = _resolve_device(device)
+                 datamodule, device="cuda", data_normalize: bool = True):
+        self.device = resolve_device(device)
         self.margs = margs
         self.opt = opt
         self.sched = sched
         self.trainer_cfg = trainer_cfg or {}
         self.datamodule = datamodule
-        cf = dict(datamodule.composite_flow_settings or {})
-        pp = getattr(datamodule, "prime_photometric_settings", {}) or {}
-        norm = getattr(datamodule, "normalize_settings", None) or {}
-        us_args = (margs.get("unsupervised_loss") or {}).get("init_args", {})
-        self.align_cfg = atr.AlignConfig(
-            prime_jitter=pp.get("jitter"),
-            prime_channel_shuffle=pp.get("channel_shuffle", False),
-            prime_blur=pp.get("blur"),
-            crop_after_flow=cf.get("crop_after_flow"),
-            norm_mean=tuple(norm.get("mean", IMNET_MEAN)),
-            norm_std=tuple(norm.get("std", IMNET_STD)),
-            apply_constant_flow_weights=bool(margs.get(
-                "apply_constant_flow_weights", False)),
-            visibility_mask=us_args.get("visibility_mask", False),
-            alpha_1=us_args.get("alpha_1", 0.03),
-            alpha_2=us_args.get("alpha_2", 0.5),
-            include_transforms=tuple(cf.get("include_transforms",
-                                            ("hom", "tps", "afftps"))),
-            random_alpha=cf.get("random_alpha", 0.26),
-            random_s=cf.get("random_s", 0.45),
-            random_tx=cf.get("random_tx", 0.25),
-            random_ty=cf.get("random_ty", 0.25),
-            random_t_hom=cf.get("random_t_hom", 0.333),
-            random_t_tps=cf.get("random_t_tps", 0.333),
-            random_t_tps_for_afftps=cf.get("random_t_tps_for_afftps", 0.08),
-            add_elastic=cf.get("add_elastic", False),
-            compute_dtype=precision_dtype(
-                self.trainer_cfg.get("precision", 16)),
-            remat_head=bool(margs.get("remat_head", False)),
-            remat_head_policy=margs.get("remat_head_policy"),
-            remat_skip_last=bool(margs.get("remat_skip_last", False)),
-            remat_modules=bool(margs.get("remat_modules", True)),
-            fold_passes=bool(margs.get("fold_passes", False)),
-        )
+        self.align_cfg = align_config(margs, self.trainer_cfg, datamodule,
+                                      data_normalize)
         self.pretrained = margs.get("pretrained")
         self.metrics_cfg = parse_metrics(margs.get("metrics", {}))
 
@@ -110,19 +74,10 @@ class AlignTask:
         """The frozen backbone (cast to the compute dtype) and the head
         (fp32 masters) from the config with weights drawn from ``seed``,
         their ``pretrained`` files loaded, Adam with MultiStepLR."""
-        backbone, bb_pre = build_backbone(self.margs["alignment_backbone"])
-        head, head_pre = build_head(self.margs["alignment_head"])
-        head.remat_modules = self.align_cfg.remat_modules
-        gen = torch.Generator().manual_seed(seed)
-        backbone.init_weights(gen)
-        head.init_weights(gen)
-        if bb_pre:
-            load_pretrained_backbone(backbone, bb_pre)
-        for spec in (head_pre, self.pretrained):
-            if spec:
-                path = _resolve(spec)
-                ckpt.load_state(head, ckpt.alignment_head_state(
-                    ckpt.read_reference(path)), what=path)
+        net = build_alignment_net(self.margs, seed)
+        net.head.remat_modules = self.align_cfg.remat_modules
+        load_alignment_pretrained(net, self.margs, self.pretrained)
+        backbone, head = net.backbone, net.head
         backbone.to(self.device)
         head.to(self.device)
         opt, sched = make_adam_optimizer(

@@ -31,11 +31,10 @@ import numpy as np
 import torch
 
 from ..alignment.trainer import AlignmentNet
-from ..config import (OptimizerSpec, SchedulerSpec, backbone_widths,
-                      build_backbone, build_head, init_args, parse_metrics,
-                      precision_dtype)
+from ..config import (OptimizerSpec, SchedulerSpec, build_alignment_net,
+                      build_segmentor, init_args, parse_metrics,
+                      resolve_device, uda_config)
 from ..data.loader import DevicePrefetcher, InfiniteLoader, cuda_put
-from ..entry import _resolve_device
 from ..metrics import iou_compute, iou_init, iou_update
 from ..models.segmentor import Segmentor, slide_inference
 from ..ops.resize import interpolate
@@ -43,8 +42,7 @@ from ..parallel import mesh
 from ..parallel.mesh import cast_floating
 from ..train.loop import FitBookkeeper
 from ..train.optim import make_uda_optimizer, warmup_poly_lr
-from ..uda.trainer import (UDAConfig, UDATrainer, draw_step, init_uda_state,
-                           train_step)
+from ..uda.trainer import UDATrainer, draw_step, init_uda_state, train_step
 from ..utils import checkpoint as ckpt
 from ..utils.palette import colorize_mask
 from ..utils.pretrained import backbone_family, resolve_pretrained
@@ -66,53 +64,37 @@ def load_pretrained_backbone(module, spec: str) -> None:
                     subset=True, what=path)
 
 
+def load_alignment_pretrained(net: AlignmentNet, margs: Dict[str, Any],
+                              *more: Optional[str]) -> None:
+    """The ``pretrained`` files of a model section's alignment backbone and
+    head into ``net``, then each of ``more`` (head checkpoints) that is
+    set."""
+    bb_pre = init_args(margs["alignment_backbone"]).get("pretrained")
+    if bb_pre:
+        load_pretrained_backbone(net.backbone, bb_pre)
+    for spec in (init_args(margs["alignment_head"]).get("pretrained"),
+                 *more):
+        if spec:
+            path = _resolve(spec)
+            ckpt.load_state(net.head, ckpt.alignment_head_state(
+                ckpt.read_reference(path)), what=path)
+
+
 class SegTask:
 
     def __init__(self, margs: Dict[str, Any], opt: OptimizerSpec,
                  sched: SchedulerSpec, trainer_cfg: Dict[str, Any],
-                 datamodule, device="cuda"):
-        self.device = _resolve_device(device)
+                 datamodule, device="cuda", data_normalize: bool = True):
+        self.device = resolve_device(device)
         self.margs = margs
         self.opt = opt
         self.sched = sched
         self.trainer_cfg = trainer_cfg or {}
         self.datamodule = datamodule
-        self.use_hrda = margs.get("use_hrda", False)
-        self.hrda_output_stride = margs.get("hrda_output_stride", 4)
         self.has_align = bool(margs.get("alignment_backbone")
                               and margs.get("alignment_head"))
-        norm = getattr(datamodule, "normalize_settings", None)
-        self.uda_cfg = UDAConfig(
-            num_classes=init_args(margs["head"]).get("num_classes", 19),
-            use_hrda=self.use_hrda,
-            hrda_output_stride=self.hrda_output_stride,
-            hr_loss_weight=margs.get("hr_loss_weight", 0.1),
-            use_refign=margs.get("use_refign", False),
-            use_align=margs.get("use_align", True),
-            adapt_to_ref=margs.get("adapt_to_ref", False),
-            gamma=margs.get("gamma", 0.25),
-            disable_M=margs.get("disable_M", False),
-            disable_P=margs.get("disable_P", False),
-            ema_momentum=margs.get("ema_momentum", 0.999),
-            pseudo_label_threshold=margs.get("pseudo_label_threshold",
-                                             0.968),
-            psweight_ignore_top=margs.get("psweight_ignore_top", 0),
-            psweight_ignore_bottom=margs.get("psweight_ignore_bottom", 0),
-            enable_fdist=margs.get("enable_fdist", True),
-            fdist_lambda=margs.get("fdist_lambda", 0.005),
-            fdist_classes=tuple(margs.get(
-                "fdist_classes", (6, 7, 11, 12, 13, 14, 15, 16, 17, 18))),
-            fdist_scale_min_ratio=margs.get("fdist_scale_min_ratio", 0.75),
-            color_jitter_s=margs.get("color_jitter_s", 0.2),
-            color_jitter_p=margs.get("color_jitter_p", 0.2),
-            blur=margs.get("blur", True),
-            compute_dtype=precision_dtype(
-                self.trainer_cfg.get("precision", 16)),
-            device_normalize=bool(getattr(datamodule, "device_normalize",
-                                          False)),
-            **({"norm_mean": tuple(norm["mean"]),
-                "norm_std": tuple(norm["std"])} if norm else {}),
-        )
+        self.uda_cfg = uda_config(margs, self.trainer_cfg, datamodule,
+                                  data_normalize)
         self.num_classes = self.uda_cfg.num_classes
         self.backbone_lr_factor = margs.get("backbone_lr_factor", 1.0)
         self.use_slide_inference = margs.get("use_slide_inference", False)
@@ -128,21 +110,11 @@ class SegTask:
     def build_student(self, seed: int = 0) -> Segmentor:
         """The student from the config, its weights drawn from ``seed``
         (on the CPU), then the backbone's ``pretrained`` file loaded."""
-        backbone, bb_pretrained = build_backbone(self.margs["backbone"])
-        widths = backbone_widths(backbone)
-        head, _ = build_head(self.margs["head"], widths)
-        scale_attention = None
-        if self.use_hrda and self.margs.get("hrda_scale_attention"):
-            scale_attention, _ = build_head(
-                self.margs["hrda_scale_attention"], widths)
-        gen = torch.Generator().manual_seed(seed)
-        for m in (backbone, head, scale_attention):
-            if m is not None:
-                m.init_weights(gen)
-        if bb_pretrained:
-            load_pretrained_backbone(backbone, bb_pretrained)
-        return Segmentor(backbone, head, scale_attention,
-                         hrda_output_stride=self.hrda_output_stride)
+        student = build_segmentor(self.margs, seed)
+        pretrained = init_args(self.margs["backbone"]).get("pretrained")
+        if pretrained:
+            load_pretrained_backbone(student.backbone, pretrained)
+        return student
 
     def build_align_net(self, seed: int = 0) -> Optional[AlignmentNet]:
         """The alignment network from the config (fp32, on the CPU), its
@@ -150,18 +122,9 @@ class SegTask:
         loaded; None where the config has none."""
         if not self.has_align:
             return None
-        backbone, bb_pre = build_backbone(self.margs["alignment_backbone"])
-        head, head_pre = build_head(self.margs["alignment_head"])
-        gen = torch.Generator().manual_seed(seed + 1)
-        backbone.init_weights(gen)
-        head.init_weights(gen)
-        if bb_pre:
-            load_pretrained_backbone(backbone, bb_pre)
-        if head_pre:
-            path = _resolve(head_pre)
-            ckpt.load_state(head, ckpt.alignment_head_state(
-                ckpt.read_reference(path)), what=path)
-        return AlignmentNet(backbone, head)
+        net = build_alignment_net(self.margs, seed + 1)
+        load_alignment_pretrained(net, self.margs)
+        return net
 
     def init_state(self, seed: int = 0) -> UDATrainer:
         """The UDA trainer on the task's device: student (fp32 masters),

@@ -33,9 +33,11 @@ from refign_tpu_torch.alignment.trainer import (AlignConfig, AlignDraws,
                                                 PrimeDraws, crop_window,
                                                 draw_align,
                                                 prepare_alignment_batch)
-from refign_tpu_torch.entry import (UAWARPC_STAGE1 as STAGE1,
-                                    UAWARPC_STAGE2 as STAGE2)
+from refign_tpu_torch.entry import ALIGN_STAGES
 from refign_tpu_torch.uda.dacs import JitterFactors
+
+# the two stages' step settings, read from megadepth/uawarpc_stage{1,2}.yaml
+STAGE1, STAGE2 = ALIGN_STAGES[1][0], ALIGN_STAGES[2][0]
 
 FLOW_TOL = dict(rtol=1e-5, atol=1e-4)
 IMG_TOL = dict(rtol=1e-5, atol=1e-4)

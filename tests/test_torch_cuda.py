@@ -770,9 +770,10 @@ def test_deeplabv2_uda_step_launches_k3_three_times(gen):
     B=2 256^2, bf16): K3 launches once per UAWarpC level and no other
     kernel runs (the alignment network is frozen: no K3 backward)."""
     import chip_smoke
-    from refign_tpu_torch.entry import build_uda_trainer
+    from refign_tpu_torch.entry import DEEPLABV2, build_uda_trainer
     from refign_tpu_torch.uda.trainer import draw_step, train_step
-    trainer = build_uda_trainer("resnet18_v1c", device="cuda", seed=0)
+    trainer = build_uda_trainer("resnet18_v1c", device="cuda", seed=0,
+                                config=DEEPLABV2)
     batch = chip_smoke.uda_batch(2, 256, 0, "cuda")
     draws = draw_step(trainer.cfg, batch, torch.Generator().manual_seed(0))
     draws.use_ref_as_target = False

@@ -54,10 +54,10 @@ from refign_tpu.models.segmentor import Segmentor as JaxSegmentor
 from refign_tpu.train.optim import make_uda_optimizer as jax_optimizer
 from refign_tpu.utils.torch_convert import convert_state_dict
 from refign_tpu_torch import metrics
-from refign_tpu_torch.entry import (DEEPLABV2_DILATIONS, DEEPLABV2_STRIDES,
-                                    REFIGN_DEEPLABV2, build_deeplabv2,
+from refign_tpu_torch.config import build_segmentor
+from refign_tpu_torch.entry import (DEEPLABV2, build_deeplabv2,
                                     build_uda_trainer, deeplabv2_forward,
-                                    deeplabv2_segmentor)
+                                    load_spec, load_task)
 from refign_tpu_torch.models.resnet import ResNet
 from refign_tpu_torch.nn.layers import TorchBatchNorm
 from refign_tpu_torch.models.heads.deeplabv2 import DeepLabV2Head
@@ -68,6 +68,9 @@ from test_torch_resnet import (REL, _floor, _ulp, assert_close_rel,
                                randomize_bn_)
 
 NARROW = dict(stem_channels=16, base_channels=16)
+# the model section of refign_deeplabv2.yaml
+MODEL = load_spec(DEEPLABV2)["model"]["init_args"]
+BACKBONE = MODEL["backbone"]["init_args"]
 N_STEPS = 3
 FLOOR_FACTOR = 5
 CFG = dict(traj.CFG, use_hrda=False)
@@ -79,13 +82,17 @@ def _rand(seed, *shape):
 
 def _jax_segmentor(model_type="resnet18_v1c", **kw):
     return JaxSegmentor(
-        backbone=JaxResNet(model_type=model_type, strides=DEEPLABV2_STRIDES,
-                           dilations=DEEPLABV2_DILATIONS, **kw),
-        head=JaxDeepLabV2(num_classes=19, in_index=3))
+        backbone=JaxResNet(model_type=model_type,
+                           strides=tuple(BACKBONE["strides"]),
+                           dilations=tuple(BACKBONE["dilations"]), **kw),
+        head=JaxDeepLabV2(num_classes=19,
+                          in_index=MODEL["head"]["init_args"]["in_index"]))
 
 
 def _port_segmentor(model_type="resnet18_v1c", seed=0):
-    seg = deeplabv2_segmentor(model_type, 19, seed, **NARROW)
+    margs = load_spec(DEEPLABV2, model_type)["model"]["init_args"]
+    margs["backbone"]["init_args"].update(NARROW)
+    seg = build_segmentor(margs, seed)
     randomize_bn_(seg, seed + 1)
     return seg
 
@@ -202,19 +209,21 @@ def test_iou_matches_jax(preds):
 
 
 def test_deeplabv2_config_matches_the_yaml():
-    """``REFIGN_DEEPLABV2``: the JAX config's fields, no HRDA, Refign with
-    align, adapt-to-reference, gamma 0.25 and the feature distance."""
+    """The step settings read from ``refign_deeplabv2.yaml``: the JAX
+    config's fields, no HRDA, Refign with align, adapt-to-reference, gamma
+    0.25 and the feature distance."""
+    got = load_task(DEEPLABV2).uda_cfg
     want = jax_trainer.UDAConfig(use_hrda=False, use_refign=True,
                                  use_align=True, adapt_to_ref=True,
                                  gamma=0.25, enable_fdist=True)
     for field in ("use_hrda", "use_refign", "use_align", "adapt_to_ref",
                   "gamma", "enable_fdist", "fdist_lambda", "compute_dtype"):
-        assert getattr(REFIGN_DEEPLABV2, field) == getattr(want, field)
+        assert getattr(got, field) == getattr(want, field)
 
 
 def test_entry_points_build_the_configuration():
     """``build_deeplabv2`` / ``deeplabv2_forward`` (eval, whole-image
-    logits) and ``build_uda_trainer`` with a ResNet: the DeepLabV2 student
+    logits) and ``build_uda_trainer`` on the file: the DeepLabV2 student
     of the yaml, no HRDA, the teacher's BatchNorm on batch statistics
     without updates, the ImageNet copy in eval mode, and AdamW in the four
     groups, every rank-1 parameter (BatchNorm scale and bias, head bias)
@@ -225,8 +234,9 @@ def test_entry_points_build_the_configuration():
     out = deeplabv2_forward(model, torch.from_numpy(_rand(0, 1, 45, 61, 3)))
     assert out.shape == (1, 45, 61, 19) and torch.isfinite(out).all()
 
-    tr = build_uda_trainer("resnet18_v1c", device="cpu")
-    assert tr.cfg == REFIGN_DEEPLABV2 and tr.align_net is not None
+    tr = build_uda_trainer("resnet18_v1c", device="cpu", config=DEEPLABV2)
+    assert tr.cfg == load_task(DEEPLABV2).uda_cfg
+    assert tr.align_net is not None
     student, teacher = tr.state.student, tr.state.teacher
     assert isinstance(student.backbone, ResNet)
     assert student.scale_attention is None and student.head.in_index == 3

@@ -458,8 +458,8 @@ def pinned_batch():
 def align_trainer(seed=0, move_backbone=None, **opts):
     """The tiny stage-1 trainer; ``opts``: other AlignConfig settings."""
     import dataclasses as dc
-    from refign_tpu_torch.entry import UAWARPC_STAGE1, build_align_trainer
-    cfg = dc.replace(UAWARPC_STAGE1, compute_dtype="float32",
+    from refign_tpu_torch.entry import ALIGN_STAGES, build_align_trainer
+    cfg = dc.replace(ALIGN_STAGES[1][0], compute_dtype="float32",
                      crop_after_flow=(64, 64), **opts)
     tr = build_align_trainer(1, "vgg11", cfg=cfg, device="cpu", seed=seed)
     if move_backbone is not None:
